@@ -1,0 +1,170 @@
+"""Build, load, check and count the hand-written CUDA kernels.
+
+The kernels live in ``line3dpp_tpu_torch/csrc/*.cu``, each behind a plain C
+interface.  At first use every source is compiled by ``nvcc`` for ``sm_90a``
+(one compiler process per source, all started together), the objects are
+linked into one shared library under ``build/kernels/<source hash>/`` of the
+checkout, and the library is loaded with ``ctypes``.  Nothing is built or
+loaded when a module is imported, so the CPU-only tests import everything.
+
+Every C entry point launches on the stream it is given, allocates nothing,
+and returns ``cudaGetLastError()``; :func:`launch` raises when that is not 0.
+``LAUNCHES`` counts the kernel launches made by the wrappers in
+``ops/matching.py``, ``ops/scoring.py`` and ``ops/affinity.py``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+
+import torch
+
+PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), "build", "kernels")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-Xcompiler", "-fPIC"]
+LIB_NAME = "libl3dkernels.so"
+
+LAUNCHES = {"match_pairs": 0, "score_matches": 0,
+            "gather_target_estimates": 0}
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIGNATURES = {
+    # 13 inputs, P S knn, epipolar_overlap, 6 outputs, stream
+    "l3d_match_pairs": [_P] * 13 + [_I] * 3 + [_F] + [_P] * 6 + [_P],
+    # 10 inputs, V S M N knn, two_sig_a_sqr min_similarity, orientation,
+    # 2 outputs, stream
+    "l3d_score_matches": ([_P] * 10 + [_I] * 5 + [_F] * 2 + [_I]
+                          + [_P] * 2 + [_P]),
+    # 4 inputs, V_tab S V M N knn, 2 outputs, stream
+    "l3d_gather_target_estimates": [_P] * 4 + [_I] * 6 + [_P] * 2 + [_P],
+}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def sources() -> list[str]:
+    return sorted(os.path.join(CSRC_DIR, f) for f in os.listdir(CSRC_DIR)
+                  if f.endswith(".cu"))
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = os.path.join(home, "bin", "nvcc")
+    if os.path.exists(path):
+        return path
+    path = shutil.which("nvcc")
+    if path is None:
+        raise RuntimeError(
+            "nvcc not found (set CUDA_HOME): the CUDA kernels are compiled "
+            "from line3dpp_tpu_torch/csrc at first use")
+    return path
+
+
+def library_path() -> str:
+    """Path of the kernel library for the current sources, built if absent.
+
+    The build writes ``build.log`` beside the library with each source's
+    ``ptxas -v`` report (registers, shared memory, spills)."""
+    srcs = sources()
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in srcs:
+        h.update(os.path.basename(src).encode())
+        with open(src, "rb") as f:
+            h.update(f.read())
+    out_dir = os.path.join(BUILD_DIR, h.hexdigest()[:16])
+    lib = os.path.join(out_dir, LIB_NAME)
+    if os.path.exists(lib):
+        return lib
+
+    nvcc = _nvcc()
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = tempfile.mkdtemp(dir=BUILD_DIR)
+    try:
+        jobs = []
+        for src in srcs:
+            obj = os.path.join(tmp, os.path.basename(src) + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", src, "-o", obj]
+            jobs.append((src, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        log = []
+        for src, _, proc in jobs:
+            out, _ = proc.communicate()
+            log.append(f"== {os.path.basename(src)}\n{out}")
+        failed = [src for src, _, proc in jobs if proc.returncode != 0]
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(log))
+        link = subprocess.run(
+            [nvcc, *NVCC_FLAGS, "-shared", *[o for _, o, _ in jobs],
+             "-o", os.path.join(tmp, LIB_NAME)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        if link.returncode != 0:
+            raise RuntimeError("nvcc link failed:\n" + link.stdout)
+        with open(os.path.join(tmp, "build.log"), "w") as f:
+            f.write("\n".join(log))
+        try:
+            os.rename(tmp, out_dir)
+        except OSError:
+            # another process finished the same build first
+            if not os.path.exists(lib):
+                raise
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return lib
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    lib = ctypes.CDLL(library_path())
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.l3d_error_string.argtypes = [ctypes.c_int]
+    lib.l3d_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def launch(name: str, *args) -> None:
+    """Call C entry point ``name``; raise if the launch reported an error."""
+    lib = library()
+    err = getattr(lib, name)(*args)
+    if err != 0:
+        msg = lib.l3d_error_string(err).decode()
+        raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
+
+
+def ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def stream(device: torch.device) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple,
+          device: torch.device) -> None:
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` on
+    ``device`` — what a kernel argument must be."""
+    if device.type != "cuda":
+        raise ValueError(f"{name}: kernel arguments must be CUDA tensors")
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: not contiguous")
