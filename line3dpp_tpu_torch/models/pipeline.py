@@ -9,9 +9,10 @@ runs
 and writes the resulting 3D line model.  Phase 2 is one fused device step
 (``models/step.py``) on ``self.device``; phase 3 is host numpy.
 
-This slice of the port covers the default reconstruction from precomputed
-segments.  Options it does not run raise ``NotImplementedError`` naming the
-ROADMAP item that ports them.
+The port covers the default reconstruction from images (LSD detection,
+``add_image``/``add_images``) or from precomputed segments (``add_view``).
+Options it does not run raise ``NotImplementedError`` naming the ROADMAP
+item that ports them.
 """
 
 from __future__ import annotations
@@ -29,7 +30,9 @@ from ..ops import affinity as affinity_ops
 from ..ops import clustering as clustering_ops
 from ..ops import fitting as fitting_ops
 from ..ops import geometry as geo
+from ..ops import lsd as lsd_ops
 from ..ops import sweep as sweep_ops
+from ..utils import segments_cache
 from ..utils.writers import FinalLine3D, save_obj, save_stl, save_txt
 from .step import forward_step
 
@@ -113,6 +116,59 @@ class Line3D:
         self._views[cam_id] = _ViewEntry(
             cam_id, camera, segments,
             list(worldpoints) if worldpoints is not None else None)
+
+    def add_image(self, cam_id: int, camera: Camera, image: np.ndarray,
+                  worldpoints: Sequence[int] | None = None,
+                  cache_dir: str | None = None) -> None:
+        """Register a view, detecting its 2D segments with the LSD detector
+        on ``self.device`` (reference: line3D.cc:249-372)."""
+        self.add_images([(cam_id, camera, image, worldpoints)], cache_dir)
+
+    def add_images(self, items: Sequence[tuple],
+                   cache_dir: str | None = None) -> None:
+        """Register several views at once.
+
+        ``items`` holds ``(cam_id, camera, image)`` or ``(cam_id, camera,
+        image, worldpoints)`` tuples.  Images narrower than
+        ``min_image_width`` are skipped (line3D.cc:119-126); with
+        ``cache_dir`` (and ``load_segments``) cached segments are read
+        instead of detected, and new detections are stored."""
+        cfg = self.config
+        if cfg.lsd_rescue or cfg.lsd_seed_gate:
+            raise NotImplementedError(
+                "Config(lsd_rescue=True) and Config(lsd_seed_gate=True) are "
+                "not ported to line3dpp_tpu_torch yet (ROADMAP item 13)")
+        use_cache = bool(cache_dir) and cfg.load_segments
+        todo = []          # (cam_id, camera, image, wps) needing detection
+        for it in items:
+            cam_id, camera, image = it[0], it[1], it[2]
+            wps = it[3] if len(it) > 3 else None
+            width = image.shape[1] if image.ndim >= 2 else 0
+            if width < cfg.min_image_width:
+                print(f"[L3D-TPU] warning: image {cam_id} too small "
+                      f"({width} < {cfg.min_image_width} px wide) -> "
+                      f"skipped", flush=True)
+                continue
+            segs = None
+            if use_cache:
+                segs = segments_cache.load(cache_dir, cam_id, image.shape,
+                                           cfg.max_line_segments,
+                                           cfg.max_image_width)
+            if segs is None:
+                todo.append((cam_id, camera, image, wps))
+            else:
+                self.add_view(cam_id, camera, segs, wps)
+        if not todo:
+            return
+        seg_lists = lsd_ops.detect_batch(
+            [t[2] for t in todo], max_width=cfg.max_image_width,
+            n_rounds=cfg.lsd_rounds, device=self.device)
+        for (cam_id, camera, image, wps), segs in zip(todo, seg_lists):
+            if use_cache:
+                segments_cache.store(cache_dir, cam_id, image.shape,
+                                     cfg.max_line_segments, segs,
+                                     cfg.max_image_width)
+            self.add_view(cam_id, camera, segs, wps)
 
     def set_visual_neighbors(self, cam_id: int,
                              neighbors: Sequence[int]) -> None:

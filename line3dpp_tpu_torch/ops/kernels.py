@@ -9,8 +9,10 @@ loaded when a module is imported, so the CPU-only tests import everything.
 
 Every C entry point launches on the stream it is given, allocates nothing,
 and returns ``cudaGetLastError()``; :func:`launch` raises when that is not 0.
-``LAUNCHES`` counts the kernel launches made by the wrappers in
-``ops/matching.py``, ``ops/scoring.py`` and ``ops/affinity.py``.
+``LAUNCHES`` counts the calls that launched a kernel, per wrapper, in
+``ops/matching.py`` (K1), ``ops/scoring.py`` (K2), ``ops/affinity.py`` (K3),
+``ops/lsd_cc.py`` (K4), ``ops/lsd_gather.py`` (K5, K6) and ``ops/lsd_fit.py``
+(K7, K8, K9, K11).
 """
 
 from __future__ import annotations
@@ -33,9 +35,11 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 LIB_NAME = "libl3dkernels.so"
 
 LAUNCHES = {"match_pairs": 0, "score_matches": 0,
-            "gather_target_estimates": 0}
+            "gather_target_estimates": 0, "cc_tiles": 0,
+            "apply_merge_dense": 0, "gather_labels": 0, "moments": 0,
+            "gate_moments": 0, "gate_pixels": 0, "extents": 0}
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 _SIGNATURES = {
     # 13 inputs, P S knn, epipolar_overlap, 6 outputs, stream
     "l3d_match_pairs": [_P] * 13 + [_I] * 3 + [_F] + [_P] * 6 + [_P],
@@ -45,6 +49,21 @@ _SIGNATURES = {
                           + [_P] * 2 + [_P]),
     # 4 inputs, V_tab S V M N knn, 2 outputs, stream
     "l3d_gather_target_estimates": [_P] * 4 + [_I] * 6 + [_P] * 2 + [_P],
+    # angle active, hp wp th tw, tol, labels unconverged, stream
+    "l3d_cc_tiles": [_P] * 2 + [_I] * 4 + [_F] + [_P] * 2 + [_P],
+    # lab T, total, out, stream
+    "l3d_apply_merge_dense": [_P] * 2 + [_L] + [_P] + [_P],
+    # src idx, n, out, stream
+    "l3d_gather_labels": [_P] * 2 + [_L] + [_P] + [_P],
+    # slot xs ys mag pix, n C, scratch out, stream
+    "l3d_moments": [_P] * 5 + [_I] * 2 + [_P] * 2 + [_P],
+    # slot xs ys ang mag pix tables, n C dump_keep, cos_tol,
+    # newpix scratch out, stream
+    "l3d_gate_moments": [_P] * 7 + [_I] * 3 + [_F] + [_P] * 3 + [_P],
+    # slot xs ys ang pix tables, n C dump_keep, cos_tol, newpix, stream
+    "l3d_gate_pixels": [_P] * 6 + [_I] * 3 + [_F] + [_P] + [_P],
+    # slot xs ys pix tables, n C, out, stream
+    "l3d_extents": [_P] * 5 + [_I] * 2 + [_P] + [_P],
 }
 
 

@@ -220,3 +220,35 @@ def scene_scale(segments: np.ndarray) -> float:
     """Characteristic scene size: diagonal of the segment bounding box."""
     pts = np.concatenate([segments[:, :3], segments[:, 3:]], axis=0)
     return float(np.linalg.norm(pts.max(0) - pts.min(0)))
+
+
+def endpoint_coverage(a: np.ndarray, b: np.ndarray, tol: float = 1.0) -> float:
+    """Share of the 2D segments ``a`` (n, 4) that have a segment in ``b``
+    with both endpoints within ``tol`` pixels, in either orientation (1.0
+    when ``a`` is empty).  Mutual coverage is the smaller of the two
+    directions."""
+    a = np.asarray(a, np.float64).reshape(-1, 4)
+    b = np.asarray(b, np.float64).reshape(-1, 4)
+    if len(a) == 0:
+        return 1.0
+    if len(b) == 0:
+        return 0.0
+
+    def d(p, q):          # (len(a), len(b)) endpoint distances
+        return np.linalg.norm(p[:, None, :] - q[None, :, :], axis=-1)
+
+    same = np.maximum(d(a[:, :2], b[:, :2]), d(a[:, 2:], b[:, 2:]))
+    flip = np.maximum(d(a[:, :2], b[:, 2:]), d(a[:, 2:], b[:, :2]))
+    return float((np.minimum(same, flip).min(1) <= tol).mean())
+
+
+def mutual_coverage(a: np.ndarray, b: np.ndarray,
+                    tol: float = 1.0) -> tuple[float, float, int]:
+    """Mutual endpoint coverage of two 2D segment sets of one view:
+    ``(coverage, covered, n)``, the smaller of the two directions'
+    coverage, the segments it covers and the larger set's size.  Summed
+    over views, ``covered / n`` is the coverage over all views."""
+    fwd = endpoint_coverage(a, b, tol)
+    back = endpoint_coverage(b, a, tol)
+    return (min(fwd, back), min(fwd * len(a), back * len(b)),
+            max(len(a), len(b)))

@@ -114,8 +114,10 @@ def test_forward_step_cuda_launches_each_kernel_once(cuda):
     got = step.forward_step(
         *(torch.from_numpy(inp[n]).to(cuda) for n in STEP_ARRAYS), **STEP_KW)
     torch.cuda.synchronize()
-    assert kernels.LAUNCHES == {"match_pairs": 1, "score_matches": 1,
-                                "gather_target_estimates": 1}
+    step_kernels = {"match_pairs": 1, "score_matches": 1,
+                    "gather_target_estimates": 1}
+    assert kernels.LAUNCHES == {name: step_kernels.get(name, 0)
+                                for name in kernels.LAUNCHES}
     want = step.forward_step(
         *(torch.from_numpy(inp[n]) for n in STEP_ARRAYS), **STEP_KW)
     for name in ("tgt_seg", "match_valid", "kept", "est_valid", "aff_valid"):
