@@ -20,7 +20,7 @@
    3072 x 2304 (``utils/synthetic``), checks them against the digests of
    ``tests/data/torch_scene2_3072_jax_reference.npz`` (written by
    ``tests/make_torch_lsd_reference.py`` with the JAX package on the CPU),
-   holds the detection kernels K4-K9 and K11 against their plain versions
+   holds the detection kernels K4-K11 against their plain versions
    on view 0's round-1 inputs and on synthetic full-size grids at a real
    photo's density (``FULL_SIZE_ACTIVE``), compares every view's
    detections with the JAX ones (``DETECT_*``), reconstructs from JAX's
@@ -29,15 +29,20 @@
    drives ``Line3D`` -> ``add_images`` -> ``match_images`` ->
    ``reconstruct_3d_lines`` -> ``save_*`` with the counters reset and read
    around it; requires every kernel to have launched and the ground-truth
-   metrics within ``GT_SPREAD`` of JAX's.
+   metrics within ``GT_SPREAD`` of JAX's.  Then the same images under
+   ``Config(lsd_rescue=True)`` (rescue cascade with K10, bundling on)
+   against ``tests/data/torch_scene2_3072_rescue_jax_reference.npz``, with
+   the number of rescued rectangles of every view (``RESCUE_*``) and all
+   eleven kernels required to have launched.
 5. Prints one ``{"full_size": ...}`` line (the detection kernels on the
    synthetic grids), one ``{"kernels": [...]}`` line, the nvidia-smi line,
    and last ``{"ok": true, "device": {...}}``.  Any failed check exits
    non-zero.
 
 ``--out DIR`` writes the build log (and the profiles) there; ``--profile``
-adds a torch.profiler breakdown of one more ``match_images`` run and of
-the detection of one facade view.
+adds a torch.profiler breakdown of one more ``match_images`` run, of the
+detection of one facade view (plain and with the rescue) and of 25
+bundling iterations.
 """
 
 from __future__ import annotations
@@ -45,6 +50,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -60,6 +66,10 @@ GOLDEN = os.path.join(
 GOLDEN_LINES = 2276
 SCENE2_NPZ = os.path.join(REPO, "tests", "data",
                           "torch_scene2_3072_jax_reference.npz")
+RESCUE_NPZ = os.path.join(REPO, "tests", "data",
+                          "torch_scene2_3072_rescue_jax_reference.npz")
+BUNDLING_NPZ = os.path.join(REPO, "tests", "data",
+                            "torch_bundling_26_jax_reference.npz")
 
 # H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor cores, HBM3
 PEAK_F32 = 67e12            # operations / s
@@ -71,6 +81,8 @@ K2_OPS_PER_PAIR = 40        # dot, acos, 3 exp, 2 divisions, min/max (scoring.cu
 K4_OPS_PER_ACTIVE = 16      # 4 backward links x angle_diff (lsd_cc.cu)
 K7_OPS_PER_PIXEL = 13       # 6 products, 7 sums (lsd_fit.cu)
 K9_OPS_PER_PIXEL = 50       # cosf, sinf (~20 each), projection, 3 tests
+K10_OPS_PER_PIXEL = 8       # 2 differences, projection, s (lsd_fit.cu) ...
+K10_OPS_PER_BAND = 6        # ... and per band 2 thresholds, 2 comparisons
 K11_OPS_PER_PIXEL = 14      # 2 differences, 2 projections, 4 minima
 
 # Facade bounds against the JAX reference.  The detections move with the
@@ -85,6 +97,29 @@ DETECT_COUNT_REL = 0.04
 DETECT_VIEW_COVERAGE = 0.90
 DETECT_ALL_COVERAGE = 0.97
 GT_SPREAD = 0.08
+# With the rescue cascade: the rectangles it rescues on the facade are 6 to
+# 14 px leftovers of round 2, where a few pixels decide, so which are
+# rescued moves with the order of the moment sums as well
+# (tests/measure_torch_rescue_margin.py --shuffles 3, the port on the CPU
+# under 5 orders, rescued rectangles per view against JAX's).  A view's
+# count may differ from JAX's by RESCUE_VIEW_DIFF; each rectangle JAX
+# rescued must lie within RESCUE_TOL_PX (larger endpoint distance) of a
+# component of the port that is accepted, or that the cascade tried with
+# its best log NFA over the 16 variants above -RESCUE_NFA_MARGIN (an
+# aligned pixel is worth 0.9); a rectangle the port rescued lies as near a
+# segment of JAX or passes by less than the margin.
+RESCUE_VIEW_DIFF = 3
+RESCUE_TOL_PX = 3.0
+RESCUE_NFA_MARGIN = 4.5
+# Bundled lines (optimize on) from the same detections against JAX's: two
+# float32 Levenberg-Marquardt runs part where a cost comparison falls the
+# other way, so the bound is a little below the unbundled 0.99.
+BUNDLED_SAME_F1 = 0.97
+# The port's LM on the problem JAX assembled for the 26 cached views
+# (2295 clusters, 250 iterations): total robust cost at the start and at
+# the end relative to JAX's.
+LM_COST0_RTOL = 1e-4
+LM_COST_RTOL = 1e-3
 # active share of the synthetic full-size grids: real photos' round 1
 # (30-47%), and 57% for a 2.8 M-pixel list (the JAX package's cap NC)
 FULL_SIZE_ACTIVE = (0.30, 0.47, 0.57)
@@ -114,6 +149,75 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_events(fn, keep: str | None = None):
+    """``fn()`` under torch.profiler: the profile, the complete events of
+    its trace and the wall seconds of the run.  The trace is also written
+    to the path ``keep`` when it is small: a loop of thousands of small
+    operations writes tens of MB."""
+    import torch
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = [e for e in json.load(f)["traceEvents"]
+                      if e.get("ph") == "X"]
+        if keep and os.path.getsize(path) <= 8 << 20:
+            os.makedirs(os.path.dirname(keep), exist_ok=True)
+            shutil.move(path, keep)
+    return prof, events, wall
+
+
+def device_busy_us(events) -> tuple[float, int]:
+    """Microseconds in which the card ran a kernel, a copy or a memset of
+    ``events`` (the union of their intervals), and how many there were."""
+    device = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                    if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    busy, end = 0.0, -1.0
+    for a, b in device:
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    return busy, len(device)
+
+
+def device_ms(fn, reps: int = 20) -> float:
+    """Mean milliseconds per call that the card itself spends on ``fn()``,
+    without the host's share of the wrapper (its Python, the allocations,
+    the launches): the stream first spins in a sleep kernel while the host
+    queues all ``reps`` calls behind it, so the card then runs them back to
+    back between the two events.  The sleep is doubled until it outlasts
+    the queueing."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    fn()
+    cycles = 20_000_000
+    for _ in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        queued_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        slept_s = time.perf_counter() - t0 - 1e-3 * start.elapsed_time(end)
+        if queued_s < slept_s:
+            return start.elapsed_time(end) / reps
+        cycles *= 2
+    fail("device_ms: the host never queued the calls within the sleep")
 
 
 def nbytes(*tensors) -> int:
@@ -148,14 +252,16 @@ def check_k1(t, eo, knn):
     moved = nbytes(t.segments, t.mask, t.r1, t.r2, t.n, t.seglen, t.e1,
                    t.e2, t.num_src, t.num_tgt, t.src_idx, t.tgt_idx,
                    t.pair_valid) + nbytes(*got[:6])
-    ms = cuda_ms(lambda: matching.match_pairs_cuda(t, eo, knn), reps=5)
+    k1 = lambda: matching.match_pairs_cuda(t, eo, knn)
+    ms = cuda_ms(k1, reps=5)
     plain_ms = cuda_ms(lambda: matching.match_pairs_plain(t, eo, knn, 8),
                        reps=1)
     return got, (dict(
         name="K1 match_pairs", route="cuda",
         source="line3dpp_tpu_torch/csrc/matching.cu",
         replaces="line3dpp_tpu/ops/matching_pallas.py:233",
-        max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        max_abs_err=err, ms=ms, device_ms=device_ms(k1, 5),
+        plain_ms=plain_ms,
         bound_ms=1e3 * max(ops / PEAK_F32, moved / PEAK_BYTES),
         bound_by="operations" if ops / PEAK_F32 > moved / PEAK_BYTES
         else "bytes", library_ms=None), candidates)
@@ -191,14 +297,16 @@ def check_k2(args, kw):
                               - per_group)).sum())
     ops = K2_OPS_PER_PAIR * pairs
     moved = nbytes(*args) + nbytes(got.score3d, got.valid)
-    ms = cuda_ms(lambda: scoring.score_matches_cuda(*args, **kw), reps=5)
+    k2 = lambda: scoring.score_matches_cuda(*args, **kw)
+    ms = cuda_ms(k2, reps=5)
     plain_ms = cuda_ms(
         lambda: scoring.score_matches_plain(*args, chunk=2048, **kw), reps=1)
     return got, (dict(
         name="K2 score_matches", route="cuda",
         source="line3dpp_tpu_torch/csrc/scoring.cu",
         replaces="line3dpp_tpu/ops/scoring_pallas.py:231",
-        max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        max_abs_err=err, ms=ms, device_ms=device_ms(k2, 5),
+        plain_ms=plain_ms,
         bound_ms=1e3 * max(ops / PEAK_F32, moved / PEAK_BYTES),
         bound_by="operations" if ops / PEAK_F32 > moved / PEAK_BYTES
         else "bytes", library_ms=None), pairs)
@@ -234,13 +342,14 @@ def check_k3(fm, nbr, tgt_seg, knn):
     library = lambda: torch.index_select(tab2, 0, flat)
     moved = nbytes(table, est_valid, nbr32, ts32) + nbytes(
         got.valid) + 8 * got.d1.numel() * 4
+    k3 = lambda: affinity.gather_target_estimates_cuda(
+        table, est_valid, nbr32, ts32, knn)
     return dict(
         name="K3 gather_target_estimates", route="cuda",
         source="line3dpp_tpu_torch/csrc/affinity_gather.cu",
         replaces="line3dpp_tpu/ops/affinity_pallas.py:76",
         max_abs_err=err,
-        ms=cuda_ms(lambda: affinity.gather_target_estimates_cuda(
-            table, est_valid, nbr32, ts32, knn), reps=20),
+        ms=cuda_ms(k3, reps=20), device_ms=device_ms(k3),
         plain_ms=cuda_ms(plain, reps=20),
         bound_ms=1e3 * moved / PEAK_BYTES, bound_by="bytes",
         library_ms=cuda_ms(library, reps=20))
@@ -300,12 +409,16 @@ def bound(ops: float, moved: float) -> tuple[float, str]:
                                        else "bytes")
 
 
-def kernel_row(name, source, replaces, err, ms, plain_ms, ops, moved,
+def kernel_row(name, source, replaces, err, fn, plain_ms, ops, moved,
                library_ms=None) -> dict:
+    """The kernels line's entry of the wrapper call ``fn``: ``ms`` by CUDA
+    events around 20 calls (the host's share of the wrapper included),
+    ``device_ms`` the card's busy time per call."""
     b_ms, by = bound(ops, moved)
     return dict(name=name, route="cuda",
                 source=f"line3dpp_tpu_torch/csrc/{source}",
-                replaces=replaces, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                replaces=replaces, max_abs_err=err, ms=cuda_ms(fn, 20),
+                device_ms=device_ms(fn), plain_ms=plain_ms,
                 bound_ms=b_ms, bound_by=by, library_ms=library_ms)
 
 
@@ -355,8 +468,8 @@ def synthetic_round1(frac: float, seed: int, dev):
 
 def check_lsd_kernels(angle, active, idx, mag_c, ang_c, tile, dev,
                       what: str):
-    """K4-K9 and K11 against their plain versions on one grid's round-1
-    inputs, with times and bounds."""
+    """K4-K11 against their plain versions on one grid's round-1 inputs,
+    with times and bounds."""
     import torch
     from line3dpp_tpu_torch.ops import lsd, lsd_cc, lsd_fit, lsd_gather
 
@@ -377,7 +490,7 @@ def check_lsd_kernels(angle, active, idx, mag_c, ang_c, tile, dev,
     check(exact and int(unconv) == 0, "K4 disagrees with its plain version")
     rows.append(kernel_row(
         "K4 cc_tiles", "lsd_cc.cu", "line3dpp_tpu/ops/lsd_cc.py:146", 0.0,
-        cuda_ms(lambda: lsd_cc.cc_tiles_cuda(angle, active, tol, tile), 20),
+        lambda: lsd_cc.cc_tiles_cuda(angle, active, tol, tile),
         cuda_ms(lambda: lsd_cc.cc_tiles_plain(angle, active, tol, tile), 1),
         K4_OPS_PER_ACTIVE * n_active, nbytes(angle, active, lab, unconv)))
 
@@ -396,13 +509,13 @@ def check_lsd_kernels(angle, active, idx, mag_c, ang_c, tile, dev,
     rows.append(kernel_row(
         "K5 apply_merge_dense", "lsd_gather.cu",
         "line3dpp_tpu/ops/lsd_gather.py:141", 0.0,
-        cuda_ms(lambda: lsd_gather.apply_merge_dense_cuda(lab, T), 20),
+        lambda: lsd_gather.apply_merge_dense_cuda(lab, T),
         cuda_ms(lambda: lsd_gather.apply_merge_dense_plain(lab, T), 20),
         0, nbytes(lab, dense) + 4 * n_active))
     rows.append(kernel_row(
         "K6 gather_labels", "lsd_gather.cu",
         "line3dpp_tpu/ops/lsd_gather.py:266", 0.0,
-        cuda_ms(lambda: lsd_gather.gather_labels_cuda(flat, idx), 20),
+        lambda: lsd_gather.gather_labels_cuda(flat, idx),
         cuda_ms(lambda: lsd_gather.gather_labels_plain(flat, idx), 20),
         0, nbytes(idx, got6) + 4 * idx.numel(),
         library_ms=cuda_ms(lambda: torch.index_select(flat, 0, idx), 20)))
@@ -434,13 +547,13 @@ def check_lsd_kernels(angle, active, idx, mag_c, ang_c, tile, dev,
     rows.append(kernel_row(
         "K7 moments", "lsd_fit.cu", "line3dpp_tpu/ops/lsd_fit.py:137",
         float((mom - mom_p).abs().max()),
-        cuda_ms(lambda: lsd_fit.moments_cuda(slot, xs, ys, mag, pix, C), 20),
+        lambda: lsd_fit.moments_cuda(slot, xs, ys, mag, pix, C),
         cuda_ms(lambda: lsd_fit.moments_plain(slot, xs, ys, mag, pix, C), 5),
         K7_OPS_PER_PIXEL * n_real, nbytes(slot, xs, ys, mag, pix, mom),
         library_ms=cuda_ms(lambda: acc7.index_add_(0, slot_l, terms), 20)))
 
     # the first fit's tables, and K11 on them: exact minima
-    tables, npix = lsd._axis_tables(mom_p)
+    tables, npix, _ = lsd._axis_tables(mom_p)
     ext = lsd_fit.extents_cuda(slot, xs, ys, pix, tables, C)
     ext_p = lsd_fit.extents_plain(slot, xs, ys, pix, tables, C)
     torch.cuda.synchronize()
@@ -457,8 +570,7 @@ def check_lsd_kernels(angle, active, idx, mag_c, ang_c, tile, dev,
     idx4 = slot_l[:, None].expand(-1, 4)
     rows.append(kernel_row(
         "K11 extents", "lsd_fit.cu", "line3dpp_tpu/ops/lsd_fit.py:530", 0.0,
-        cuda_ms(lambda: lsd_fit.extents_cuda(slot, xs, ys, pix, tables, C),
-                20),
+        lambda: lsd_fit.extents_cuda(slot, xs, ys, pix, tables, C),
         cuda_ms(lambda: lsd_fit.extents_plain(slot, xs, ys, pix, tables, C),
                 5),
         K11_OPS_PER_PIXEL * n_real, nbytes(slot, xs, ys, pix, tables, ext),
@@ -468,7 +580,7 @@ def check_lsd_kernels(angle, active, idx, mag_c, ang_c, tile, dev,
     # the first refine step's gate, as _lsd_round builds it: K8 against its
     # plain version and its newpix against K9's on the same inputs
     f = lsd._rectangles(tables, npix, ext_p)
-    t8 = lsd._refine_tables(f)
+    t8 = lsd._with_gate(f, lsd._refine_gate(f)[0])
     args8 = (slot, xs, ys, ang, mag, pix, t8, True, lsd.COS_GATE, C)
     np8, mom8 = lsd_fit.gate_moments_cuda(*args8)
     np8_k9 = lsd_fit.gate_pixels_cuda(slot, xs, ys, ang, pix, t8, True,
@@ -492,7 +604,7 @@ def check_lsd_kernels(angle, active, idx, mag_c, ang_c, tile, dev,
     rows.append(kernel_row(
         "K8 gate_moments", "lsd_fit.cu", "line3dpp_tpu/ops/lsd_fit.py:368",
         float((mom8 - mom8_p)[clean[:C]].abs().max()),
-        cuda_ms(lambda: lsd_fit.gate_moments_cuda(*args8), 20),
+        lambda: lsd_fit.gate_moments_cuda(*args8),
         cuda_ms(lambda: lsd_fit.moments_plain(
             slot, xs, ys, mag, lsd_fit.gate_pixels_plain(
                 slot, xs, ys, ang, pix, t8, True, lsd.COS_GATE, C), C), 5),
@@ -513,29 +625,105 @@ def check_lsd_kernels(angle, active, idx, mag_c, ang_c, tile, dev,
     rows.append(kernel_row(
         "K9 gate_pixels", "lsd_fit.cu", "line3dpp_tpu/ops/lsd_fit.py:402",
         float(flip9),
-        cuda_ms(lambda: lsd_fit.gate_pixels_cuda(*args9), 20),
+        lambda: lsd_fit.gate_pixels_cuda(*args9),
         cuda_ms(lambda: lsd_fit.gate_pixels_plain(*args9), 5),
         K9_OPS_PER_PIXEL * n_real, nbytes(slot, xs, ys, ang, pix, t9, np9)))
+
+    # the rescue's 15 bands and rect_improve's 4 on the first fit's
+    # rectangles, as _rescue builds the tables: K10, integer counts, exact
+    t10 = lsd._band_tables(f)
+    for bands in (lsd.RESCUE_BANDS, lsd_fit.SYM_BANDS):
+        bt = torch.tensor(bands, dtype=torch.float32, device=dev)
+        args10 = (slot, xs, ys, pix, t10, C, bt)
+        cnt = lsd_fit.band_counts_cuda(*args10)
+        cnt_p = lsd_fit.band_counts_plain(*args10)
+        torch.cuda.synchronize()
+        exact = torch.equal(cnt, cnt_p)
+        k10 = lambda args=args10: lsd_fit.band_counts_cuda(*args)
+        plain10 = cuda_ms(lambda: lsd_fit.band_counts_plain(*args10), 5)
+        print(f"[{what}] K10 band_counts, {len(bands)} bands: "
+              f"{int(cnt.sum())} pixel-band hits, equal to the plain "
+              f"version {exact}; {cuda_ms(k10, 20):.4f} ms, on the card "
+              f"{device_ms(k10):.4f} ms, plain {plain10:.3f} ms", flush=True)
+        check(exact, f"K10 ({len(bands)} bands) differs from its plain "
+              f"version")
+        if len(bands) == len(lsd.RESCUE_BANDS):
+            rows.append(kernel_row(
+                "K10 band_counts", "lsd_fit.cu",
+                "line3dpp_tpu/ops/lsd_fit.py:498",
+                float((cnt - cnt_p).abs().max()), k10, plain10,
+                (K10_OPS_PER_PIXEL + K10_OPS_PER_BAND * len(bands)) * n_real,
+                nbytes(slot, xs, ys, pix, t10, bt, cnt)))
     return rows
 
 
-def images_to_lines(images, cams, gt, ref, dev):
+def rescue_differences(view, ref_rescued, ref_segs, segs, ok, diag) -> list:
+    """Holds one view's rescue cascade against JAX's, rectangle by
+    rectangle.  A rectangle JAX rescued must be among the port's accepted
+    segments (both endpoints within ``RESCUE_TOL_PX``), or be a component
+    of the port that the cascade tried and whose best log NFA over the 16
+    variants is less than ``RESCUE_NFA_MARGIN`` below the threshold; a
+    rectangle the port rescued must be among JAX's segments or pass by
+    less than the margin.  Prints every difference and returns those that
+    neither rule explains."""
+    from line3dpp_tpu_torch.utils import golden
+
+    segs = segs.cpu().numpy().astype(np.float64)
+    ok = ok.cpu().numpy()
+    rescued, attempt, nfa = (diag[k].cpu().numpy()
+                             for k in ("rescued", "attempt", "nfa"))
+    unexplained = []
+    d_ok, _ = golden.nearest_segment(ref_rescued, segs[ok])
+    d_any, j = golden.nearest_segment(ref_rescued, segs)
+    for k in np.nonzero(d_ok > 1.0)[0]:     # beyond the coverage's 1 px
+        c = j[k]
+        near = d_ok[k] <= RESCUE_TOL_PX or (
+            d_any[k] <= RESCUE_TOL_PX and attempt[c]
+            and nfa[c] > -RESCUE_NFA_MARGIN)
+        what = (f"JAX rescued {np.round(ref_rescued[k], 2).tolist()}: the "
+                f"port's nearest accepted segment is {d_ok[k]:.2f} px off, "
+                f"its nearest component {d_any[k]:.2f} px (tried "
+                f"{bool(attempt[c])}, best log NFA {nfa[c]:.3f})")
+        print(f"view {view}: {what}", flush=True)
+        if not near:
+            unexplained.append(what)
+    mine = np.nonzero(rescued)[0]
+    d_ref, _ = golden.nearest_segment(segs[mine], ref_segs)
+    for k in np.nonzero(d_ref > 1.0)[0]:
+        c = mine[k]
+        what = (f"the port rescued {np.round(segs[c], 2).tolist()} (best "
+                f"log NFA {nfa[c]:.3f}): JAX's nearest segment is "
+                f"{d_ref[k]:.2f} px off")
+        print(f"view {view}: {what}", flush=True)
+        if d_ref[k] > RESCUE_TOL_PX and nfa[c] >= RESCUE_NFA_MARGIN:
+            unexplained.append(what)
+    return unexplained
+
+
+def images_to_lines(images, cams, gt, ref, dev, rescue: bool = False):
     """Detections against the reference's, then the images -> lines path
     through the user entry points with the launch counters read around
-    it.  Returns the launches and the phase times."""
+    it: under ``Config(optimize=False)``, or with ``rescue`` under
+    ``Config(lsd_rescue=True)`` (rescue cascade, bundling on).  Returns the
+    launches and the phase times."""
     import torch
     import line3dpp_tpu_torch as lt
     from line3dpp_tpu_torch.ops import kernels, lsd
     from line3dpp_tpu_torch.utils import golden
 
     t0 = time.perf_counter()
-    runs = []
+    runs, states = [], []
     for image in images:
         img, _ = lsd._prepare(image, -1, dev)
-        segs_i, ok, st = lsd._lsd_core(img)
+        diag = {} if rescue else None
+        segs_i, ok, st = lsd._lsd_core(img, rescue=rescue, diag=diag)
         runs.append((segs_i[ok].cpu().numpy().astype(np.float64), st))
+        states.append((segs_i, ok, diag))
     detect_s = time.perf_counter() - t0
     ref_segs = np.split(ref["segments"], np.cumsum(ref["seg_counts"])[:-1])
+    if rescue:
+        ref_res = np.split(ref["rescued_segments"],
+                           np.cumsum(ref["n_rescue"])[:-1])
     # Bounds: short segments of components far from the origin move by a
     # pixel or two with the order of the float32 moment sums (the fit
     # subtracts cx^2 from sxx / sw); see DETECT_* above.
@@ -548,8 +736,18 @@ def images_to_lines(images, cams, gt, ref, dev):
         print(f"view {i}: {st['used']} active pixels, components per round "
               f"{[x['components'] for x in r]}, survivors "
               f"{[x['survivors'] for x in r[:-1]]}; {len(a)} segments vs "
-              f"{len(b)} of JAX, mutual 1-px endpoint coverage {cov:.4f}",
+              f"{len(b)} of JAX, mutual 1-px endpoint coverage {cov:.4f}"
+              + (f"; rescued per round {[x['n_rescue'] for x in r]}, JAX "
+                 f"{int(ref['n_rescue'][i])} in all" if rescue else ""),
               flush=True)
+        if rescue:
+            check(abs(st["n_rescue"] - int(ref["n_rescue"][i]))
+                  <= RESCUE_VIEW_DIFF,
+                  f"view {i}: {st['n_rescue']} rescued rectangles, JAX "
+                  f"{int(ref['n_rescue'][i])}")
+            unexplained = rescue_differences(i, ref_res[i], b, *states[i])
+            check(not unexplained, f"view {i}: rescued rectangles differ "
+                  f"from JAX's: {unexplained}")
         check(abs(len(a) - len(b)) <= DETECT_COUNT_REL * len(b)
               and cov >= DETECT_VIEW_COVERAGE,
               f"view {i}: detections differ from the JAX reference's")
@@ -557,8 +755,17 @@ def images_to_lines(images, cams, gt, ref, dev):
           f"coverage over all views {covered / total:.4f}", flush=True)
     check(covered / total >= DETECT_ALL_COVERAGE,
           "the detections differ from the JAX reference's")
+    if rescue:
+        n_res = sum(st["n_rescue"] for _, st in runs)
+        print(f"rescued rectangles over all views: {n_res} (JAX "
+              f"{int(ref['n_rescue'].sum())})", flush=True)
+        check(n_res > 0, "the rescue cascade rescued nothing")
 
-    cfg = lt.Config(optimize=False, num_neighbors=int(ref["neighbors"]))
+    cfg = (lt.Config(lsd_rescue=True, num_neighbors=int(ref["neighbors"]))
+           if rescue else
+           lt.Config(optimize=False, num_neighbors=int(ref["neighbors"])))
+    check(cfg.optimize == bool(ref.get("optimize", False)),
+          "the reference was made with another optimize setting")
     tol = 0.01 * golden.scene_scale(gt)
     gt_lines = [gt[i:i + 1] for i in range(len(gt))]
 
@@ -582,7 +789,8 @@ def images_to_lines(images, cams, gt, ref, dev):
     print(f"lines from JAX's detections: {len(pred)} (JAX {len(ref_lines)}),"
           f" count_f1 against JAX's lines {f1:.4f}; against the "
           f"{len(gt)} GT lines {json.dumps(got)}", flush=True)
-    check(abs(len(pred) - len(ref_lines)) <= 2 and f1 >= 0.99
+    check(abs(len(pred) - len(ref_lines)) <= 2
+          and f1 >= (BUNDLED_SAME_F1 if cfg.optimize else 0.99)
           and all(got[k] >= want[k] - 0.02 for k in got),
           "the reconstruction from JAX's detections differs from JAX's")
     del same
@@ -617,22 +825,145 @@ def images_to_lines(images, cams, gt, ref, dev):
     print("images -> lines: " + json.dumps(phases), flush=True)
     print("launches: " + json.dumps(launches), flush=True)
     for name, n in launches.items():
-        check(n > 0, f"kernel {name} was not launched on the images -> "
-              f"lines path")
+        # K10 runs in the rescue cascade only
+        check(n > 0 or (name == "band_counts" and not rescue),
+              f"kernel {name} was not launched on the images -> lines path")
+    if rescue:
+        got_res = [st["n_rescue"] for st in pipe.detect_stats]
+        check(got_res == [st["n_rescue"] for _, st in runs],
+              "add_images rescued other rectangles than the detection pass")
     check(n_rows == len(lines), "TXT rows != line count")
     check(all(np.isfinite(l.segments3d).all() for l in lines),
           "non-finite 3D segments")
 
     # From the port's own detections the GT metrics move as far as the
     # detections move with the order of the moment sums: GT_SPREAD above.
-    got = gt_metrics([l.segments3d for l in lines])
-    print(f"result: {len(lines)} lines (JAX {len(ref_lines)}) vs "
-          f"{len(gt)} GT lines: {json.dumps(got)}; JAX on the CPU: "
-          f"{json.dumps(want)}", flush=True)
+    pred = [l.segments3d for l in lines]
+    got = gt_metrics(pred)
+    f1 = golden.line_match_metrics(pred, ref_lines, tol)["count_f1"]
+    print(f"result: {len(lines)} lines (JAX {len(ref_lines)}, count_f1 "
+          f"against them {f1:.4f}) vs {len(gt)} GT lines: "
+          f"{json.dumps(got)}; JAX on the CPU: {json.dumps(want)}",
+          flush=True)
     for k in got:
         check(got[k] >= want[k] - GT_SPREAD, f"{k} {got[k]:.4f} is more "
               f"than {GT_SPREAD} below the JAX package's {want[k]:.4f}")
     return launches, dict(phases, detect_s=detect_s)
+
+
+def lm_reference(dev):
+    """The bundling reference file: the Levenberg-Marquardt problem the JAX
+    package assembled on the 26 cached views as tensors on ``dev`` (the
+    port's ``problem_from_capture`` of the stored arrays), and the file."""
+    from line3dpp_tpu_torch.ops import bundling
+
+    if not os.path.exists(BUNDLING_NPZ):
+        fail(f"missing {BUNDLING_NPZ} "
+             f"(tests/make_torch_bundling_reference.py)")
+    with np.load(BUNDLING_NPZ) as data:
+        ref = {k: data[k] for k in data.files}
+    cam = ref["cam_rows"][ref["obs_cam"]]
+    ones = np.ones((len(cam), 1), np.float32)
+    capture = dict(
+        params0=ref["params0"], obs_cluster=ref["obs_cluster"],
+        Ko=cam[:, 0:9].reshape(-1, 3, 3), Ro=cam[:, 9:18].reshape(-1, 3, 3),
+        to=cam[:, 18:21], p1h=np.concatenate([ref["p1"], ones], 1),
+        p2h=np.concatenate([ref["p2"], ones], 1), d2=ref["d2"],
+        C=len(ref["params0"]))
+    return bundling.problem_from_capture(capture, dev), ref
+
+
+def bundled_cached(views, dev, opts):
+    """The 26 cached views under the default ``Config()``: the port's LM on
+    JAX's problem against JAX's costs, then the bundled path through the
+    user entry points against JAX's bundled lines."""
+    import torch
+    import line3dpp_tpu_torch as lt
+    from line3dpp_tpu_torch.ops import bundling, kernels
+    from line3dpp_tpu_torch.utils import golden
+
+    prob, ref = lm_reference(dev)
+    C, iters = prob["C"], int(ref["iterations"])
+    args = [prob[k] for k in bundling.LM_ARRAYS]
+    cost0 = bundling.lm_cost(*args, num_clusters=C)
+    want0, want = float(ref["cost0"].sum()), float(ref["cost"].sum())
+    rel0 = abs(float(cost0.sum()) - want0) / want0
+    print(f"LM problem of JAX: {C} clusters, {args[1].numel()} observations; "
+          f"total cost at the start {float(cost0.sum()):.3f} (JAX "
+          f"{want0:.3f}, rel {rel0:.2e}, limit {LM_COST0_RTOL})", flush=True)
+    check(rel0 <= LM_COST0_RTOL, "lm_cost differs from JAX's at the start")
+    runs = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params = bundling.lm_optimize(*args, num_clusters=C,
+                                      iterations=iters)
+        torch.cuda.synchronize()
+        runs.append((params, time.perf_counter() - t0))
+    cost = bundling.lm_cost(runs[0][0], *args[1:], num_clusters=C)
+    rel = abs(float(cost.sum()) - want) / want
+    same = torch.equal(runs[0][0], runs[1][0])
+    per = (cost.cpu().numpy() - ref["cost"]) / np.maximum(ref["cost"], 1e-6)
+    print(f"lm_optimize, {iters} iterations: {runs[0][1]:.3f} s and "
+          f"{runs[1][1]:.3f} s; total cost {float(cost.sum()):.3f} (JAX "
+          f"{want:.3f}, rel {rel:.2e}, limit {LM_COST_RTOL}); clusters more "
+          f"than 1% above JAX's cost: {int((per > 0.01).sum())}, below: "
+          f"{int((per < -0.01).sum())}; two runs bit-identical: {same}",
+          flush=True)
+    check(bool(torch.isfinite(runs[0][0]).all()), "non-finite LM parameters")
+    check(rel <= LM_COST_RTOL, "lm_optimize ends at another cost than JAX's")
+    check(same, "two lm_optimize runs on the card differ")
+    if opts.profile:
+        profile(lambda: bundling.lm_optimize(*args, num_clusters=C,
+                                             iterations=25),
+                "lm_optimize_25_iterations", opts.out)
+
+    cfg = lt.Config()
+    kernels.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    phases = {}
+    t0 = time.perf_counter()
+    pipe = lt.Line3D(cfg)
+    for v in views:
+        pipe.add_view(v.cam_id, lt.Camera(v.K, v.R, v.t, v.width, v.height),
+                      v.segments)
+    pipe.match_images()
+    torch.cuda.synchronize()
+    phases["add_view_and_match_images_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lines = pipe.reconstruct_3d_lines()
+    phases["reconstruct_3d_lines_s"] = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        base = os.path.join(tmp, cfg.filename_tag())
+        pipe.save_txt(base + ".txt")
+        pipe.save_stl(base + ".stl")
+        pipe.save_obj(base + ".obj")
+        with open(base + ".txt") as f:
+            n_rows = sum(1 for _ in f)
+    launches = dict(kernels.LAUNCHES)
+    phases["peak_device_GiB"] = torch.cuda.max_memory_allocated() / 2**30
+    print("cached segments -> bundled lines: " + json.dumps(phases),
+          flush=True)
+    print("launches: " + json.dumps(launches), flush=True)
+    for name in ("match_pairs", "score_matches", "gather_target_estimates"):
+        check(launches[name] > 0,
+              f"kernel {name} was not launched on the bundled path")
+    check(n_rows == len(lines), "TXT rows != line count")
+    check(all(np.isfinite(l.segments3d).all() for l in lines),
+          "non-finite 3D segments")
+    pred = [l.segments3d for l in lines]
+    ref_lines = np.split(ref["lines"].astype(np.float64),
+                         np.cumsum(ref["line_counts"])[:-1])
+    scale = golden.scene_scale(ref["lines"].astype(np.float64))
+    f1 = {t: golden.line_match_metrics(pred, ref_lines, t * scale)[
+        "count_f1"] for t in (1e-2, 1e-3)}
+    print(f"result: {len(lines)} bundled lines (JAX {len(ref_lines)}); "
+          f"count_f1 against JAX's bundled lines at 1% / 0.1% scene scale "
+          f"{f1[1e-2]:.4f} / {f1[1e-3]:.4f}", flush=True)
+    check(abs(len(lines) - len(ref_lines)) <= 0.01 * len(ref_lines),
+          "bundled line count off JAX's by more than 1%")
+    check(f1[1e-2] >= 0.99, "bundled lines: count_f1 < 0.99 against JAX's")
+    return phases
 
 
 def main() -> None:
@@ -756,6 +1087,10 @@ def main() -> None:
     del pipe
     torch.cuda.empty_cache()
 
+    # ---- the same views under the default Config(): bundling on
+    bundled_cached(views, dev, opts)
+    torch.cuda.empty_cache()
+
     # ---- images -> lines on the full-size facade
     if not os.path.exists(SCENE2_NPZ):
         fail(f"missing {SCENE2_NPZ} (tests/make_torch_lsd_reference.py)")
@@ -763,6 +1098,7 @@ def main() -> None:
         ref = {k: data[k] for k in data.files}
     images, cams, gt, render_s = render_scene(ref)
     from line3dpp_tpu_torch.ops import lsd
+    from line3dpp_tpu_torch.utils import synthetic
 
     img, _ = lsd._prepare(images[0], -1, dev)
     _, _, th, tw, _, _ = lsd._statics(*img.shape)
@@ -772,19 +1108,37 @@ def main() -> None:
     full = {}
     for frac in FULL_SIZE_ACTIVE:
         full[f"active {frac}"] = [
-            {k: r[k] for k in ("name", "max_abs_err", "ms", "plain_ms",
-                               "bound_ms", "bound_by", "library_ms")}
+            {k: r[k] for k in ("name", "max_abs_err", "ms", "device_ms",
+                               "plain_ms", "bound_ms", "bound_by",
+                               "library_ms")}
             for r in check_lsd_kernels(*synthetic_round1(frac, 0, dev), dev,
                                        f"synthetic, {frac} active")]
     torch.cuda.synchronize()
-    launches, phases = images_to_lines(images, cams, gt, ref, dev)
+    _, phases = images_to_lines(images, cams, gt, ref, dev)
     phases["render_s"] = render_s
     print("images -> lines phases: " + json.dumps(phases), flush=True)
-    if opts.profile:
-        from line3dpp_tpu_torch.ops import lsd
 
+    # ---- the same images under Config(lsd_rescue=True), bundling on: the
+    # path whose launches the kernels line reports
+    if not os.path.exists(RESCUE_NPZ):
+        fail(f"missing {RESCUE_NPZ} (tests/make_torch_lsd_reference.py "
+             f"--rescue)")
+    with np.load(RESCUE_NPZ) as data:
+        ref = {k: data[k] for k in data.files}
+    n_ref = len(ref["seg_counts"])
+    check(list(ref["digests"]) == [synthetic.image_digest(im)
+                                   for im in images[:n_ref]],
+          "the rescue reference was made from other images")
+    launches, phases = images_to_lines(images[:n_ref], cams[:n_ref], gt, ref,
+                                       dev, rescue=True)
+    print("images -> lines with the rescue cascade, phases: "
+          + json.dumps(phases), flush=True)
+    if opts.profile:
         profile(lambda: lsd.detect_batch(images[:1], device=dev),
                 "detect_view0", opts.out)
+        profile(lambda: lsd.detect_batch(images[:1], rescue=True,
+                                         device=dev),
+                "detect_view0_rescue", opts.out)
 
     if opts.out:
         os.makedirs(opts.out, exist_ok=True)
@@ -803,31 +1157,11 @@ def main() -> None:
 def profile(fn, label: str, out_dir) -> None:
     """Device time by kernel over one more run of ``fn``, and the share of
     the profiled span in which the device was busy."""
-    import torch
-    from torch.profiler import ProfilerActivity
-    from torch.profiler import profile as torch_profile
-
-    with torch_profile(activities=[ProfilerActivity.CPU,
-                                   ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+    prof, events, wall = device_events(
+        fn, os.path.join(out_dir, f"{label}_trace.json") if out_dir else None)
     print(prof.key_averages().table(sort_by="device_time_total",
                                     row_limit=25), flush=True)
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(out_dir or tmp, f"{label}_trace.json")
-        os.makedirs(os.path.dirname(path), exist_ok=True)
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            events = [e for e in json.load(f)["traceEvents"]
-                      if e.get("ph") == "X"]
-    device = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
-                    if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
-    busy, end = 0.0, -1.0
-    for a, b in device:                    # union of device intervals
-        busy += max(0.0, b - max(a, end))
-        end = max(end, b)
+    busy, n_device = device_busy_us(events)
     span = (max(e["ts"] + e["dur"] for e in events)
             - min(e["ts"] for e in events))
     # the span covers the torch ops; the wall time adds host work outside
@@ -835,7 +1169,7 @@ def profile(fn, label: str, out_dir) -> None:
     print(f"profile: {label} wall {1e3 * wall:.3f} ms, torch-op span "
           f"{span / 1e3:.3f} ms, device busy {busy / 1e3:.3f} ms "
           f"({100 * busy / span:.1f}% of the span, "
-          f"{busy / 1e4 / wall:.1f}% of the wall), {len(device)} device "
+          f"{busy / 1e4 / wall:.1f}% of the wall), {n_device} device "
           f"events", flush=True)
 
 

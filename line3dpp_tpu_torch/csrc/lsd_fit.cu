@@ -1,9 +1,9 @@
-// K7 moments, K8 gate_moments, K9 gate_pixels and K11 extents: the LSD
-// rectangle-fit passes over the label-sorted pixel list.
+// K7 moments, K8 gate_moments, K9 gate_pixels, K10 band_counts and K11
+// extents: the LSD rectangle-fit passes over the label-sorted pixel list.
 //
 // Replace line3dpp_tpu/ops/lsd_fit.py:_moments_kernel (moments),
-// _gate_moments_kernel (gate_moments), _gate_kernel (gate_pixels) and
-// _extent_kernel (extents).  Every pixel i carries a component slot in
+// _gate_moments_kernel (gate_moments), _gate_kernel (gate_pixels),
+// _band_counts_kernel (band_counts) and _extent_kernel (extents).  Every pixel i carries a component slot in
 // [0, C]; the slots of real components increase along the list and each
 // component is one contiguous run, and slot C (the dump) marks every other
 // pixel.  Tables are (C, 8) float32 rows (ct, st, cx, cy, gate, center, 0,
@@ -32,6 +32,17 @@
 //   - The gate (K8, K9): one device function, the plain version's
 //     expression with __fmul_rn / __fadd_rn so nothing is contracted into
 //     an FMA; cosf / sinf are CUDA's full-precision functions.
+//   - Band counts (K10): the table row holds (ct, st, cx, cy, mid, width);
+//     every pixel evaluates s = 2 (w_proj - mid) and, for each of up to 16
+//     bands (lo_w, lo_c, hi_w, hi_c), lo_w width + lo_c <= s <= hi_w width +
+//     hi_c, again without contraction, so a pixel on a band's edge falls on
+//     the same side as in the plain version.  Per band one __ballot_sync of
+//     the predicate; the first lane of each group of equal slots
+//     (__match_any_sync) adds the popcount of its group's bits to an int32
+//     (C, B) scratch with one integer atomicAdd.  Integer sums do not depend
+//     on their order: the result is deterministic and equals the plain
+//     version exactly.  The Pallas kernel's limit of 8 bands (its sublane
+//     count) does not exist here, so the rescue's 15 bands are one launch.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -187,6 +198,59 @@ __global__ void gate_kernel(const int* __restrict__ slot,
   }
 }
 
+constexpr int kMaxBands = 16;
+
+__global__ void band_counts_kernel(const int* __restrict__ slot,
+                                   const float* __restrict__ xs,
+                                   const float* __restrict__ ys,
+                                   const float* __restrict__ pix,
+                                   const float4* __restrict__ tab,
+                                   const float4* __restrict__ bands, int64_t n,
+                                   int C, int B, int* __restrict__ acc) {
+  __shared__ float4 sb[kMaxBands];
+  if (threadIdx.x < B) sb[threadIdx.x] = bands[threadIdx.x];
+  __syncthreads();
+  const int lane = threadIdx.x & 31;
+  FOR_WARP_CHUNKS(n) {
+    const int64_t i = base + lane;
+    int key = -1;
+    bool in = false;
+    float s2 = 0.f, width = 0.f;
+    if (i < n) {
+      const int s = slot[i];
+      if (s >= 0 && s < C) {
+        key = s;
+        const float4 a = tab[2 * (int64_t)s];        // ct st cx cy
+        const float4 b = tab[2 * (int64_t)s + 1];    // mid width - -
+        const float dxp = __fsub_rn(xs[i], a.z);
+        const float dyp = __fsub_rn(ys[i], a.w);
+        const float w =
+            __fadd_rn(__fmul_rn(-dxp, a.y), __fmul_rn(dyp, a.x));
+        s2 = __fmul_rn(2.f, __fsub_rn(w, b.x));
+        width = b.y;
+        in = pix[i] != 0.f;
+      }
+    }
+    const unsigned peers = __match_any_sync(kFull, key);
+    const bool leader = key >= 0 && lane == __ffs(peers) - 1;
+    for (int b = 0; b < B; ++b) {
+      const float4 t = sb[b];                        // lo_w lo_c hi_w hi_c
+      const bool hit = in &&
+                       s2 >= __fadd_rn(__fmul_rn(t.x, width), t.y) &&
+                       s2 <= __fadd_rn(__fmul_rn(t.z, width), t.w);
+      const int cnt = __popc(__ballot_sync(kFull, hit) & peers);
+      if (leader && cnt) atomicAdd(acc + (int64_t)key * B + b, cnt);
+    }
+  }
+}
+
+__global__ void band_counts_out(const int* __restrict__ acc, int64_t total,
+                                float* __restrict__ out) {
+  for (int64_t j = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; j < total;
+       j += (int64_t)gridDim.x * blockDim.x)
+    out[j] = (float)acc[j];
+}
+
 __global__ void extents_init(int C, int* __restrict__ out) {
   const int64_t total = (int64_t)C * 4;
   for (int64_t j = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; j < total;
@@ -301,6 +365,26 @@ extern "C" int l3d_gate_pixels(const int* slot, const float* xs,
   gate_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
       slot, xs, ys, ang, pix, reinterpret_cast<const float4*>(tables), n, C,
       dump_keep != 0, cos_tol, newpix);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int l3d_band_counts(const int* slot, const float* xs,
+                               const float* ys, const float* pix,
+                               const float* tables, const float* bands, int n,
+                               int C, int B, int* scratch, float* out,
+                               void* stream) {
+  if (n < 0 || C < 0 || B < 1 || B > kMaxBands)
+    return (int)cudaErrorInvalidValue;
+  if (C == 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  const int64_t total = (int64_t)C * B;
+  cudaError_t err = cudaMemsetAsync(scratch, 0, sizeof(int) * (size_t)total, s);
+  if (err != cudaSuccess) return (int)err;
+  if (n > 0)
+    band_counts_kernel<<<blocks_for(n), kThreads, 0, s>>>(
+        slot, xs, ys, pix, reinterpret_cast<const float4*>(tables),
+        reinterpret_cast<const float4*>(bands), n, C, B, scratch);
+  band_counts_out<<<blocks_for(total), kThreads, 0, s>>>(scratch, total, out);
   return (int)cudaGetLastError();
 }
 

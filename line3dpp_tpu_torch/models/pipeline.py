@@ -7,12 +7,14 @@ runs
     [1] view ingestion  ->  [2] line matching  ->  [3] reconstruction
 
 and writes the resulting 3D line model.  Phase 2 is one fused device step
-(``models/step.py``) on ``self.device``; phase 3 is host numpy.
+(``models/step.py``) on ``self.device``; phase 3 is host numpy, apart from
+the line bundling (``ops/bundling.py``), which runs on ``self.device``.
 
-The port covers the default reconstruction from images (LSD detection,
-``add_image``/``add_images``) or from precomputed segments (``add_view``).
-Options it does not run raise ``NotImplementedError`` naming the ROADMAP
-item that ports them.
+The port covers the default ``Config()`` (line bundling included) from
+images (LSD detection, ``add_image``/``add_images``, with the
+``lsd_rescue`` and ``lsd_seed_gate`` options) or from precomputed segments
+(``add_view``).  Options it does not run raise ``NotImplementedError``
+naming the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from ..camera import (Camera, CameraBatch, fundamental_matrices,
                       median_center_translation)
 from ..config import Config
 from ..ops import affinity as affinity_ops
+from ..ops import bundling as bundling_ops
 from ..ops import clustering as clustering_ops
 from ..ops import fitting as fitting_ops
 from ..ops import geometry as geo
@@ -45,7 +48,6 @@ STEP_ARRAYS = ("segments", "seg_mask", "RtKinv", "C", "k_reg",
 def _check_supported(cfg: Config) -> None:
     """Raise for configuration options this slice of the port does not run."""
     todo = [
-        (cfg.optimize, "optimize=True (line bundling)", 8),
         (cfg.perform_rdd, "perform_rdd=True", 13),
         (cfg.collinearity_t > 0, "collinearity_t > 0", 13),
         (cfg.split_bimodal_t > 0, "split_bimodal_t > 0", 13),
@@ -58,8 +60,7 @@ def _check_supported(cfg: Config) -> None:
         if on:
             raise NotImplementedError(
                 f"{what} is not ported to line3dpp_tpu_torch yet (ROADMAP "
-                f"item {item}); pass Config(optimize=False) with the "
-                f"defaults of the other options")
+                f"item {item}); leave this option at its default")
 
 
 @dataclasses.dataclass
@@ -91,6 +92,8 @@ class Line3D:
         self._views: dict[int, _ViewEntry] = {}
         self._fixed_neighbors: dict[int, list[int]] = {}
         self.lines3d: list[FinalLine3D] = []
+        # the detector's diagnostic counts of the last add_images call
+        self.detect_stats: list[dict] = []
         self._last_state: dict = {}
 
     # ------------------------------------------------------------------
@@ -132,12 +135,13 @@ class Line3D:
         image, worldpoints)`` tuples.  Images narrower than
         ``min_image_width`` are skipped (line3D.cc:119-126); with
         ``cache_dir`` (and ``load_segments``) cached segments are read
-        instead of detected, and new detections are stored."""
+        instead of detected, and new detections are stored.
+        ``self.detect_stats`` then holds one dict of the detector's counts
+        (``ops.lsd._lsd_core``: active pixels, components and acceptances
+        per round, ``n_rescue``, ``n_split``) per image detected by this
+        call, in order."""
         cfg = self.config
-        if cfg.lsd_rescue or cfg.lsd_seed_gate:
-            raise NotImplementedError(
-                "Config(lsd_rescue=True) and Config(lsd_seed_gate=True) are "
-                "not ported to line3dpp_tpu_torch yet (ROADMAP item 13)")
+        self.detect_stats = []
         use_cache = bool(cache_dir) and cfg.load_segments
         todo = []          # (cam_id, camera, image, wps) needing detection
         for it in items:
@@ -162,7 +166,9 @@ class Line3D:
             return
         seg_lists = lsd_ops.detect_batch(
             [t[2] for t in todo], max_width=cfg.max_image_width,
-            n_rounds=cfg.lsd_rounds, device=self.device)
+            rescue=cfg.lsd_rescue, n_rounds=cfg.lsd_rounds,
+            seed_gate=cfg.lsd_seed_gate, device=self.device,
+            stats=self.detect_stats)
         for (cam_id, camera, image, wps), segs in zip(todo, seg_lists):
             if use_cache:
                 segments_cache.store(cache_dir, cam_id, image.shape,
@@ -360,6 +366,11 @@ class Line3D:
         line_dir = lines.P2 - lines.P1
         line_dir /= np.maximum(
             np.linalg.norm(line_dir, axis=-1, keepdims=True), EPS)
+
+        # --- optional bundling of the cluster lines (optimization.cc)
+        if cfg.optimize:
+            lineP1, _, line_dir = bundling_ops.optimize_cluster_lines(
+                lineP1, lines.P2, mc, mv, ms, C, st, cfg, device=self.device)
 
         # --- project member segments onto their cluster lines
         r1 = st["r1"].cpu().numpy()

@@ -12,7 +12,7 @@ and returns ``cudaGetLastError()``; :func:`launch` raises when that is not 0.
 ``LAUNCHES`` counts the calls that launched a kernel, per wrapper, in
 ``ops/matching.py`` (K1), ``ops/scoring.py`` (K2), ``ops/affinity.py`` (K3),
 ``ops/lsd_cc.py`` (K4), ``ops/lsd_gather.py`` (K5, K6) and ``ops/lsd_fit.py``
-(K7, K8, K9, K11).
+(K7-K11).
 """
 
 from __future__ import annotations
@@ -37,7 +37,8 @@ LIB_NAME = "libl3dkernels.so"
 LAUNCHES = {"match_pairs": 0, "score_matches": 0,
             "gather_target_estimates": 0, "cc_tiles": 0,
             "apply_merge_dense": 0, "gather_labels": 0, "moments": 0,
-            "gate_moments": 0, "gate_pixels": 0, "extents": 0}
+            "gate_moments": 0, "gate_pixels": 0, "band_counts": 0,
+            "extents": 0}
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 _SIGNATURES = {
@@ -62,6 +63,8 @@ _SIGNATURES = {
     "l3d_gate_moments": [_P] * 7 + [_I] * 3 + [_F] + [_P] * 3 + [_P],
     # slot xs ys ang pix tables, n C dump_keep, cos_tol, newpix, stream
     "l3d_gate_pixels": [_P] * 6 + [_I] * 3 + [_F] + [_P] + [_P],
+    # slot xs ys pix tables bands, n C B, scratch out, stream
+    "l3d_band_counts": [_P] * 6 + [_I] * 3 + [_P] * 2 + [_P],
     # slot xs ys pix tables, n C, out, stream
     "l3d_extents": [_P] * 5 + [_I] * 2 + [_P] + [_P],
 }

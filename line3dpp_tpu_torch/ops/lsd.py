@@ -17,9 +17,12 @@ has Pallas kernels:
    pixels sorted by component, the >= 5-pixel run filter, rectangle fits from
    weighted moments and projection extents (``ops/lsd_fit``: kernels K7
    and K11), two density-refine iterations (kernel K8), the NFA test
-   (lsd.cpp ``nfa``, with ``ops/special.betainc``), and the consumption of
-   accepted rectangles' pixels (kernel K9) before the next round, which
-   runs on the surviving pixels only.
+   (lsd.cpp ``nfa``, with ``ops/special.betainc``), optionally the rescue
+   cascade of the rectangles that fail it (lsd.cpp ``rect_improve``: pixel
+   counts in 15 reduced bands, kernel K10, and a retry at half the angle
+   tolerance, kernel K9), and the consumption of accepted rectangles'
+   pixels (kernel K9) before the next round, which runs on the surviving
+   pixels only.
 3. ``detect`` / ``detect_batch``: grayscale conversion, the optional
    ``max_width`` downscale, upload and the rounds; segments in original
    image coordinates.
@@ -27,14 +30,15 @@ has Pallas kernels:
 The JAX package sizes its device arrays with static caps (active pixels,
 components, border links, transfer buffer) and re-runs an image when one
 overflows.  Here every array has its exact size, so none of those caps or
-re-runs exists.  Only the default configuration is ported: ``rescue``,
-``seed_gate``, ``seed_center`` and ``side_split`` raise (ROADMAP item 13).
-Entry points run on the CUDA device unless the caller passes
+re-runs exists.  The options ``rescue``, ``seed_gate``, ``seed_center``,
+``side_split`` and ``rect_improve`` are those of the JAX package.  Entry
+points run on the CUDA device unless the caller passes
 ``device="cpu"``, which runs every kernel's plain torch version.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Sequence
 
@@ -66,7 +70,36 @@ SCALE_F32 = _f32(SCALE)
 PREC = _f32(math.radians(ANG_TH))                  # round-1 link tolerance
 RHO = _f32(QUANT / math.sin(math.radians(ANG_TH)))  # magnitude threshold
 COS_GATE = _f32(math.cos(math.radians(ANG_TH)))     # region-angle gate
+COS_GATE_HALF = _f32(math.cos(math.radians(ANG_TH / 2)))  # the p/2 retry's
 P_NFA = ANG_TH / 180.0
+PI_F32 = _f32(math.pi)
+TWO_PI_F32 = _f32(2.0 * math.pi)
+
+
+def _rescue_bands() -> tuple:
+    """The rescue cascade's 15 reduced bands in the ``s = 2 (w_proj - mid)``
+    frame (lsd.cpp rect_improve 1756-1873: width cuts of 0.5 px on both
+    sides, on one side, on the other), with each variant's number of
+    half-pixel steps and the shift of its centre line in w_proj units."""
+    sym = lambda n: (-1.0, 0.5 * n, 1.0, -0.5 * n)
+    side_a = lambda n: (-1.0, float(n), 1.0, 0.0)
+    side_b = lambda n: (-1.0, 0.0, 1.0, -float(n))
+    cuts = (1, 2, 3, 4)
+    bands = (tuple(sym(n) for n in cuts) + tuple(side_a(n) for n in cuts)
+             + tuple(side_b(n) for n in cuts) + (sym(5), side_a(5), side_b(5)))
+    steps = (1, 2, 3, 4) * 3 + (5, 5, 5)
+    offs = ((0.0,) * 4 + (0.25, 0.5, 0.75, 1.0)
+            + (-0.25, -0.5, -0.75, -1.0) + (0.0, 1.25, -1.25))
+    return bands, steps, offs
+
+
+RESCUE_BANDS, RESCUE_STEPS, RESCUE_OFFS = _rescue_bands()
+
+
+@functools.lru_cache(maxsize=None)
+def _const(values: tuple, device: torch.device) -> torch.Tensor:
+    """A float32 constant on ``device``, uploaded once."""
+    return torch.tensor(values, dtype=torch.float32, device=device)
 
 
 def _gaussian_kernel(sigma: float) -> np.ndarray:
@@ -210,7 +243,9 @@ def _grad_compact(img: torch.Tensor):
 
 def _theta_from_moments(mom: torch.Tensor):
     """Centroid and main direction (max-variance eigenvector of the weighted
-    scatter matrix, lsd.cpp ``get_theta``) of every component."""
+    scatter matrix, lsd.cpp ``get_theta``) of every component, its pixel
+    count, and the minor eigenvalue: the weighted variance across the
+    axis, which the ``side_split`` hollowness test reads."""
     sw, swx, swy, sxx, syy, sxy, npix = mom[:, :7].unbind(1)
     swz = sw.clamp_min(1e-12)
     cx = swx / swz
@@ -224,13 +259,14 @@ def _theta_from_moments(mom: torch.Tensor):
     theta = torch.where((lmax_eig - ixx).abs() > (lmax_eig - iyy).abs(),
                         torch.atan2(lmax_eig - ixx, ixy),
                         torch.atan2(ixy, lmax_eig - iyy))
-    return cx, cy, theta, npix
+    return cx, cy, theta, npix, 0.5 * (ixx + iyy - disc)
 
 
 def _axis_tables(mom: torch.Tensor):
-    """``(tables, npix)``: the (C, 8) fit tables of the moments (cos t,
-    sin t, cx, cy, gate ``BIG``, center 0) and the pixel counts."""
-    cx, cy, theta, npix = _theta_from_moments(mom)
+    """``(tables, npix, var_w)``: the (C, 8) fit tables of the moments
+    (cos t, sin t, cx, cy, gate ``BIG``, center 0), the pixel counts and
+    the variances across the axis."""
+    cx, cy, theta, npix, var_w = _theta_from_moments(mom)
     tables = torch.zeros((mom.shape[0], lsd_fit.TABLE_COLS),
                          dtype=torch.float32, device=mom.device)
     tables[:, 0] = torch.cos(theta)
@@ -238,42 +274,57 @@ def _axis_tables(mom: torch.Tensor):
     tables[:, 2] = cx
     tables[:, 3] = cy
     tables[:, 4] = BIG
-    return tables, npix
+    return tables, npix, var_w
 
 
 def _rectangles(tables: torch.Tensor, npix: torch.Tensor,
-                ext: torch.Tensor) -> dict:
+                ext: torch.Tensor, var_w: torch.Tensor | None = None) -> dict:
     """The fitted rectangles from the tables and the extents (K11)."""
     lmin, wmin, lmax, wmax = ext[:, 0], ext[:, 1], -ext[:, 2], -ext[:, 3]
     length = lmax - lmin
     width = (wmax - wmin).clamp_min(1.0)
     area = length.clamp_min(1.0) * width
     return dict(tables=tables, npix=npix, lmin=lmin, lmax=lmax, wmin=wmin,
-                wmax=wmax, length=length, width=width,
+                wmax=wmax, length=length, width=width, var_w=var_w,
                 density=npix / area.clamp_min(1e-12))
 
 
-def _with_gate(f: dict, gate: torch.Tensor) -> torch.Tensor:
+def _with_gate(f: dict, gate: torch.Tensor,
+               center: torch.Tensor | None = None) -> torch.Tensor:
+    """The fit tables with the band half-width in column 4 and, when given,
+    the band's centre on the rectangle normal in column 5 (0 otherwise:
+    the band around the fitted axis)."""
     tables = f["tables"].clone()
     tables[:, 4] = gate
+    if center is not None:
+        tables[:, 5] = center
     return tables
 
 
-def _refine_tables(f: dict) -> torch.Tensor:
-    """The density refine's gate (lsd.cpp refine / reduce_region_radius):
-    a component below the density threshold keeps only the pixels within
-    0.6 of its half-width (at least 0.75) of its axis; the others keep all
-    their pixels."""
+def _refine_gate(f: dict):
+    """``(gate, fail)`` of the density refine (lsd.cpp refine /
+    reduce_region_radius): a component below the density threshold keeps
+    only the pixels within 0.6 of its half-width (at least 0.75) of its
+    axis; the others keep all their pixels."""
     half_w = (torch.maximum(f["wmin"].abs(), f["wmax"].abs()) * 0.6
               ).clamp_min(0.75)
-    return _with_gate(f, torch.where(f["density"] < DENSITY_TH, half_w, BIG))
+    fail = f["density"] < DENSITY_TH
+    return torch.where(fail, half_w, BIG), fail
 
 
-def _consume_tables(f: dict, ok: torch.Tensor) -> torch.Tensor:
+def _consume_tables(f: dict, ok: torch.Tensor,
+                    rescue: dict | None = None) -> torch.Tensor:
     """The consume gate: the band of an accepted rectangle, its half-width
-    plus 0.75; nothing for the others."""
+    plus 0.75; nothing for the others.  A rescued rectangle consumes only
+    its accepted band (half-width ``gate``, centre ``center``): the pixels
+    the cut released stay alive for the later rounds."""
     half = torch.maximum(f["wmin"].abs(), f["wmax"].abs()) + 0.75
-    return _with_gate(f, torch.where(ok, half, -1.0))
+    gate = torch.where(ok, half, -1.0)
+    if rescue is None:
+        return _with_gate(f, gate)
+    return _with_gate(f, torch.where(rescue["rescued"],
+                                     rescue["gate"] + 0.75, gate),
+                      rescue["center"])
 
 
 def _nfa(k_cnt: torch.Tensor, n_area: torch.Tensor, log_ntests: float,
@@ -332,18 +383,155 @@ def _pixel_list(angle, active, idx, mag_c, ang_c, tol: float,
         unconverged_tiles=int(unconverged.sum()))
 
 
+def _segment_amax(vals: torch.Tensor, slot: torch.Tensor, C: int,
+                  empty) -> torch.Tensor:
+    """Per-component maximum of ``vals`` (``empty`` for no pixel)."""
+    out = torch.full((C + 1,), empty, dtype=vals.dtype, device=vals.device)
+    out.scatter_reduce_(0, slot.long(), vals, "amax")
+    return out[:C]
+
+
+def _expand(t: torch.Tensor, slot: torch.Tensor, pad) -> torch.Tensor:
+    """Each pixel's entry of a per-component vector, ``pad`` in the dump."""
+    return torch.cat([t, t.new_full((1,), pad)])[slot.long()]
+
+
+def _seed_roots(pl: dict) -> torch.Tensor:
+    """The pixels of the largest gradient magnitude in their component
+    (lsd.cpp grows a region from its strongest pixel, 790-810)."""
+    mmax = _segment_amax(pl["mag_s"], pl["slot"], pl["C"], -BIG)
+    return pl["mag_s"] >= _expand(mmax, pl["slot"], BIG)
+
+
+def _seed_angle_ok(pl: dict) -> torch.Tensor:
+    """``seed_gate``: the pixels within ANG_TH of their component's seed
+    angle (lsd.cpp admits pixels aligned with the region angle, 1704-1754;
+    the seed's level-line angle stands for it).  Dump pixels pass."""
+    slot, ang_s, C = pl["slot"], pl["ang_s"], pl["C"]
+    root_ang = _segment_amax(torch.where(_seed_roots(pl), ang_s, -BIG),
+                             slot, C, -BIG)
+    dang = (ang_s - _expand(root_ang, slot, BIG_ANGLE)).abs()
+    dang = torch.where(dang > TWO_PI_F32, dang - TWO_PI_F32, dang)
+    dang = torch.where(dang > PI_F32, TWO_PI_F32 - dang, dang)
+    return (dang <= PREC) | (slot >= C)
+
+
+def _seed_positions(pl: dict, wp: int):
+    """``(x_seed, y_seed, seed_ok)`` per component: its strongest pixel,
+    ties in magnitude going to the largest flat index."""
+    seed_flat = _segment_amax(
+        torch.where(_seed_roots(pl), pl["idx_s"], -1), pl["slot"], pl["C"],
+        -1)
+    sf = seed_flat.clamp_min(0)
+    return ((sf % wp).to(torch.float32),
+            torch.div(sf, wp, rounding_mode="floor").to(torch.float32),
+            seed_flat >= 0)
+
+
+def _seed_offset(f: dict, x_seed, y_seed) -> torch.Tensor:
+    """The seed's offset from the fitted axis along the rectangle normal."""
+    ct, st, cx, cy = f["tables"][:, :4].unbind(1)
+    return -(x_seed - cx) * st + (y_seed - cy) * ct
+
+
+def _first_argmax(t: torch.Tensor) -> torch.Tensor:
+    """Index of the maximum along dim 1, the lowest index on ties."""
+    pos = torch.arange(t.shape[1], device=t.device)[None, :]
+    top = t == t.max(dim=1, keepdim=True).values
+    return torch.where(top, pos, t.shape[1]).min(dim=1).values
+
+
+def _segment_count(pix: torch.Tensor, slot: torch.Tensor, C: int
+                   ) -> torch.Tensor:
+    """Pixels with ``pix != 0`` per component, as float32."""
+    acc = torch.zeros((C + 1,), dtype=torch.int32, device=pix.device)
+    acc.index_add_(0, slot.long(), (pix != 0.0).to(torch.int32))
+    return acc[:C].to(torch.float32)
+
+
+def _band_tables(f: dict) -> torch.Tensor:
+    """The tables K10 reads: the rectangle's mid-line on its normal in
+    column 4 and its width in column 5."""
+    return _with_gate(f, 0.5 * (f["wmin"] + f["wmax"]), f["width"])
+
+
+def _rescue(pl: dict, f: dict, pix, ok, log_ntests: float) -> dict:
+    """lsd.cpp rect_improve (1756-1873) as one batched cascade over the
+    rectangles that pass the density and size tests and fail the NFA: the
+    finer precision p/2 over the full band, 5 symmetric width cuts and 5
+    cuts of either side in steps of 0.5 px; the variant with the best NFA
+    is kept (the first on ties).  Returns ``rescued`` and, for the rescued,
+    the accepted band's ``center`` on the rectangle normal (0 = the fitted
+    axis) and half-width ``gate`` (0 and -1 for the others); also
+    ``attempt`` and the best variant's log NFA ``nfa`` of every
+    component."""
+    slot, xs, ys, C = pl["slot"], pl["xs"], pl["ys"], pl["C"]
+    dev = pix.device
+    mid = 0.5 * (f["wmin"] + f["wmax"])
+    width = f["width"]
+    length1 = f["length"].clamp_min(1.0)
+    counts = lsd_fit.band_counts(slot, xs, ys, pix, _band_tables(f), C,
+                                 _const(RESCUE_BANDS, dev))       # (C, 15)
+    steps = _const(RESCUE_STEPS, dev)
+    w_v = width[:, None] - 0.5 * steps[None, :]
+    nfa_v = _nfa(counts, length1[:, None] * w_v, log_ntests)
+    nfa_v = torch.where((w_v > 0.5) & (counts >= 5.0), nfa_v, -BIG)
+    # the p/2 retry: tighter alignment over the full band, same area
+    pix_half = lsd_fit.gate_pixels(
+        slot, xs, ys, pl["ang_s"], pix,
+        _with_gate(f, torch.where(width > 0, 0.5 * width, -1.0), mid),
+        False, COS_GATE_HALF, C)
+    k_half = _segment_count(pix_half, slot, C)
+    nfa_half = torch.where(
+        k_half >= 5.0,
+        _nfa(k_half, length1 * width, log_ntests, p=P_NFA / 2), -BIG)
+    nfa_all = torch.cat([nfa_half[:, None], nfa_v], dim=1)        # (C, 16)
+    offs = _const((0.0,) + RESCUE_OFFS, dev)
+    off_all = mid[:, None] + offs[None, :]
+    w_all = torch.cat([width[:, None], w_v], dim=1)
+    best = _first_argmax(nfa_all)[:, None]
+    take = lambda t: torch.gather(t, 1, best)[:, 0]
+    attempt = (f["npix"] >= 5.0) & ~ok & (f["density"] >= DENSITY_TH)
+    nfa_best = take(nfa_all)
+    rescued = attempt & (nfa_best > LOG_EPS)
+    return dict(rescued=rescued, attempt=attempt, nfa=nfa_best,
+                center=torch.where(rescued, take(off_all), 0.0),
+                gate=torch.where(rescued, 0.5 * take(w_all), -1.0))
+
+
+def _rect_improve(pl: dict, f: dict, pix, log_ntests: float) -> torch.Tensor:
+    """The older width-retry knob: a rectangle passes when one of 4
+    symmetric width cuts (0.5 px steps around its mid-line, endpoints
+    unchanged) passes the size, density and NFA tests."""
+    counts = lsd_fit.band_counts(pl["slot"], pl["xs"], pl["ys"], pix,
+                                 _band_tables(f), pl["C"],
+                                 _const(lsd_fit.SYM_BANDS, pix.device))
+    cuts = _const((1.0, 2.0, 3.0, 4.0), pix.device)
+    w_b = f["width"][:, None] - 0.5 * cuts[None, :]
+    area_b = f["length"].clamp_min(1.0)[:, None] * w_b
+    nfa_b = _nfa(counts, area_b, log_ntests)
+    dens_b = counts / area_b.clamp_min(1e-12)
+    return ((w_b > 0.5) & (counts >= 5.0) & (dens_b >= DENSITY_TH)
+            & (nfa_b > LOG_EPS)).any(dim=1)
+
+
 def _lsd_round(angle, active, idx, mag_c, ang_c, tol: float, consume: bool,
-               tile: tuple, hw2: int, refine_iters: int = 2):
+               tile: tuple, hw2: int, refine_iters: int = 2,
+               rect_improve: bool = False, rescue: bool = False,
+               seed_gate: bool = False, seed_center: bool = False,
+               side_split: bool = False, diag: dict | None = None):
     """One extraction round on the listed pixels (all of them active).
 
     Returns ``(segs (C, 4), ok (C,), survivors, stats)``: the fitted segment
     of every component in subsampled-to-original coordinates, whether it
     passed, the (idx, mag, ang) of the pixels no accepted rectangle
-    consumed (None when ``consume`` is False), and counts."""
+    consumed (None when ``consume`` is False), and counts.  A ``diag``
+    dict receives the per-component tensors of the rescue cascade
+    (``_rescue``)."""
     dev = angle.device
     if idx.numel() == 0:
         stats = dict(pixels=0, components=0, border_links=0,
-                     unconverged_tiles=0, accepted=0,
+                     unconverged_tiles=0, accepted=0, n_split=0, n_rescue=0,
                      survivors=0 if consume else None)
         return (torch.zeros((0, 4), dtype=torch.float32, device=dev),
                 torch.zeros((0,), dtype=torch.bool, device=dev),
@@ -351,54 +539,120 @@ def _lsd_round(angle, active, idx, mag_c, ang_c, tol: float, consume: bool,
     pl = _pixel_list(angle, active, idx, mag_c, ang_c, tol, tile)
     n, C, slot, xs, ys = pl["n"], pl["C"], pl["slot"], pl["xs"], pl["ys"]
     idx_s, mag_s, ang_s = pl["idx_s"], pl["mag_s"], pl["ang_s"]
+    wp = angle.shape[1]
 
     def fit(mom, pix):
-        tables, npix = _axis_tables(mom)
+        tables, npix, var_w = _axis_tables(mom)
         return _rectangles(tables, npix,
-                           lsd_fit.extents(slot, xs, ys, pix, tables, C))
+                           lsd_fit.extents(slot, xs, ys, pix, tables, C),
+                           var_w)
 
-    # first fit, then the density refine: failing components keep only the
-    # gated pixels aligned with their axis, and refit
+    def refit(pix):
+        return fit(lsd_fit.moments(slot, xs, ys, mag_s, pix, C), pix)
+
+    def gated_pix(f, gate, pix, dump_keep, center=None, cos_tol=COS_GATE):
+        return lsd_fit.gate_pixels(slot, xs, ys, ang_s, pix,
+                                   _with_gate(f, gate, center), dump_keep,
+                                   cos_tol, C)
+
     pix = torch.ones(n, dtype=torch.float32, device=dev)
-    f = fit(lsd_fit.moments(slot, xs, ys, mag_s, pix, C), pix)
+    if seed_gate:
+        # fit the pixels near the seed's angle first, then re-admit every
+        # pixel aligned with that axis: a curved tail no longer bends the
+        # first fit, and the pixels gated out re-cluster in later rounds
+        f0 = refit(pix * _seed_angle_ok(pl).to(torch.float32))
+        pix = gated_pix(f0, torch.full((C,), BIG, device=dev), pix, True)
+    f = refit(pix)
+
+    # the density refine: failing components keep only the gated pixels
+    # aligned with their axis, and refit
+    anchored = (seed_center or side_split) and refine_iters > 0
+    if anchored:
+        x_seed, y_seed, seed_ok = _seed_positions(pl, wp)
+    n_split = 0
     for _ in range(refine_iters):
-        pix, mom = lsd_fit.gate_moments(slot, xs, ys, ang_s, mag_s, pix,
-                                        _refine_tables(f), True, COS_GATE, C)
-        f = fit(mom, pix)
+        gate, fail = _refine_gate(f)
+        if side_split:
+            # two close parallel lines fused into one component put the
+            # axis between them: the w_proj distribution is two bands
+            # around a hollow middle (sigma_w / w_ext tends to 1, against
+            # 0.58 for a filled band).  Keep the seed's side whole and
+            # release the other line for the next round.
+            w_ext = torch.maximum(f["wmin"].abs(), f["wmax"].abs())
+            hollow = torch.sqrt(f["var_w"].clamp_min(0.0)) >= 0.70 * w_ext
+            side_ext = torch.where(_seed_offset(f, x_seed, y_seed) >= 0.0,
+                                   f["wmax"], f["wmin"])
+            two = fail & hollow & seed_ok & (w_ext >= 1.0)
+            n_split += int(two.sum())
+            pix = gated_pix(f, torch.where(two, 0.5 * side_ext.abs(), gate),
+                            pix, True,
+                            center=torch.where(two, 0.5 * side_ext, 0.0))
+            f = refit(pix)
+        elif seed_center:
+            # shrink toward the seed pixel, not the fitted axis (lsd.cpp
+            # reduce_region_radius 1296-1358)
+            wc = torch.where(fail & seed_ok,
+                             _seed_offset(f, x_seed, y_seed), 0.0)
+            pix = gated_pix(f, gate, pix, True, center=wc)
+            f = refit(pix)
+        else:
+            pix, mom = lsd_fit.gate_moments(slot, xs, ys, ang_s, mag_s, pix,
+                                            _with_gate(f, gate), True,
+                                            COS_GATE, C)
+            f = fit(mom, pix)
 
     # NFA a-contrario validation: (HW)^{5/2} tests, p = ANG_TH / 180
+    log_ntests = 2.5 * math.log10(float(hw2))
     log_nfa = _nfa(f["npix"], f["length"].clamp_min(1.0) * f["width"],
-                   2.5 * math.log10(float(hw2)))
+                   log_ntests)
     ok = ((f["npix"] >= 5.0) & (f["density"] >= DENSITY_TH)
           & (log_nfa > LOG_EPS))
+    res = None
+    if rescue:
+        res = _rescue(pl, f, pix, ok, log_ntests)
+        ok = ok | res["rescued"]
+        if diag is not None:
+            diag.update(res)
+    if rect_improve:
+        ok = ok | _rect_improve(pl, f, pix, log_ntests)
 
     survivors = None
     if consume:
         # remove every aligned pixel within an accepted rectangle's band
         consumed = lsd_fit.gate_pixels(
-            slot, xs, ys, ang_s, torch.ones_like(pix), _consume_tables(f, ok),
-            False, COS_GATE, C) != 0.0
+            slot, xs, ys, ang_s, torch.ones_like(pix),
+            _consume_tables(f, ok, res), False, COS_GATE, C) != 0.0
         alive = ~consumed
         survivors = (idx_s[alive], mag_s[alive], ang_s[alive])
 
     # endpoints in subsampled coordinates -> original (/SCALE, lsd.cpp
-    # 2103-2108)
+    # 2103-2108); a rescued segment shifts onto its band's centre line
     ct, st, cx, cy = f["tables"][:, :4].unbind(1)
+    if res is not None:
+        cx = cx - res["center"] * st
+        cy = cy + res["center"] * ct
     segs = torch.stack([(cx + f["lmin"] * ct) / SCALE_F32,
                         (cy + f["lmin"] * st) / SCALE_F32,
                         (cx + f["lmax"] * ct) / SCALE_F32,
                         (cy + f["lmax"] * st) / SCALE_F32], dim=-1)
     stats = dict(pixels=n, components=C, border_links=pl["n_links"],
                  unconverged_tiles=pl["unconverged_tiles"],
-                 accepted=int(ok.sum()),
+                 accepted=int(ok.sum()), n_split=n_split,
+                 n_rescue=int(res["rescued"].sum()) if rescue else 0,
                  survivors=(int(survivors[0].numel()) if consume else None))
     return segs, ok, survivors, stats
 
 
-def _lsd_core(img: torch.Tensor, n_rounds: int = 3, refine_iters: int = 2):
+def _lsd_core(img: torch.Tensor, n_rounds: int = 3, refine_iters: int = 2,
+              rect_improve: bool = False, rescue: bool = False,
+              seed_gate: bool = False, seed_center: bool = False,
+              side_split: bool = False, diag: dict | None = None):
     """Detection on a (H, W) float32 grayscale image in [0, 255] on its
     device.  Returns ``(segs (n, 4), ok (n,), stats)`` over the components
-    of all rounds, in subsampled-to-original coordinates."""
+    of all rounds, in subsampled-to-original coordinates; ``stats`` holds
+    the per-round counts and the totals ``n_split`` and ``n_rescue``.  A
+    ``diag`` dict receives the rescue cascade's per-component tensors
+    (``_rescue``) over all rounds, in the order of ``segs``."""
     if not 1 <= n_rounds <= 3:
         raise ValueError(f"n_rounds={n_rounds}: the detector runs 1-3 "
                          f"rounds")
@@ -410,12 +664,15 @@ def _lsd_core(img: torch.Tensor, n_rounds: int = 3, refine_iters: int = 2):
     # the later rounds re-link what is left at half and a quarter of the
     # tolerance, splitting curved chains into straight pieces
     tols = (PREC, PREC * 0.5, PREC * 0.25)[:n_rounds]
-    all_segs, all_ok = [], []
+    all_segs, all_ok, round_diags = [], [], []
     for r, tol in enumerate(tols):
         consume = r + 1 < len(tols)
-        segs, ok, surv, st = _lsd_round(angle, active, idx, mag_c, ang_c,
-                                        tol, consume, (th, tw), h2 * w2,
-                                        refine_iters)
+        round_diags.append({})
+        segs, ok, surv, st = _lsd_round(
+            angle, active, idx, mag_c, ang_c, tol, consume, (th, tw),
+            h2 * w2, refine_iters, rect_improve=rect_improve, rescue=rescue,
+            seed_gate=seed_gate, seed_center=seed_center,
+            side_split=side_split, diag=round_diags[-1])
         all_segs.append(segs)
         all_ok.append(ok)
         stats["rounds"].append(st)
@@ -424,6 +681,13 @@ def _lsd_core(img: torch.Tensor, n_rounds: int = 3, refine_iters: int = 2):
             active = torch.zeros(hp * wp, dtype=torch.bool, device=img.device)
             active[idx] = True
             active = active.reshape(hp, wp)
+    stats["n_split"] = sum(st["n_split"] for st in stats["rounds"])
+    stats["n_rescue"] = sum(st["n_rescue"] for st in stats["rounds"])
+    if diag is not None:
+        # a round without pixels has no components and no tensors
+        filled = [d for d in round_diags if d]
+        diag.update({k: torch.cat([d[k] for d in filled])
+                     for k in (filled[0] if filled else ())})
     return torch.cat(all_segs), torch.cat(all_ok), stats
 
 
@@ -435,16 +699,6 @@ def _default_device(device):
                 "available; pass device='cpu' to run on the CPU")
         device = "cuda"
     return torch.device(device)
-
-
-def _check_options(rescue, seed_gate, seed_center, side_split) -> None:
-    for on, name in ((rescue, "rescue"), (seed_gate, "seed_gate"),
-                     (seed_center, "seed_center"),
-                     (side_split, "side_split")):
-        if on:
-            raise NotImplementedError(
-                f"LSD option {name}=True is not ported to line3dpp_tpu_torch "
-                f"yet (ROADMAP item 13)")
 
 
 def _prepare(image: np.ndarray, max_width: int, device: torch.device):
@@ -471,24 +725,33 @@ def _prepare(image: np.ndarray, max_width: int, device: torch.device):
 
 
 def detect_batch(images: Sequence[np.ndarray], max_width: int = -1,
-                 n_rounds: int = 3, rescue: bool = False,
-                 seed_gate: bool = False, seed_center: bool = False,
-                 side_split: bool = False, refine_iters: int = 2,
-                 device: str | torch.device | None = None
-                 ) -> list[np.ndarray]:
+                 rect_improve: bool = False, rescue: bool = False,
+                 n_rounds: int = 3, seed_gate: bool = False,
+                 seed_center: bool = False, side_split: bool = False,
+                 refine_iters: int = 2,
+                 device: str | torch.device | None = None,
+                 stats: list | None = None) -> list[np.ndarray]:
     """Detect 2D line segments in each image; returns a list of (n, 4)
     float64 arrays [x1 y1 x2 y2] in original image coordinates.
 
     The images run one after another on the current stream, each with a
     few host syncs for its exact sizes (active pixels, components, border
-    links, survivors)."""
-    _check_options(rescue, seed_gate, seed_center, side_split)
+    links, survivors).  ``rescue`` runs the rescue cascade on the
+    rectangles that fail the NFA; ``seed_gate``, ``seed_center`` and
+    ``side_split`` anchor the first fit and the density refine on each
+    component's strongest pixel; ``rect_improve`` is the older width-retry
+    knob.  When ``stats`` is a list, each image's ``_lsd_core`` stats are
+    appended to it."""
     device = _default_device(device)
     out = []
     for image in images:
         img, ds = _prepare(image, max_width, device)
-        segs, ok, _ = _lsd_core(img, n_rounds=n_rounds,
-                                refine_iters=refine_iters)
+        segs, ok, st = _lsd_core(
+            img, n_rounds=n_rounds, refine_iters=refine_iters,
+            rect_improve=rect_improve, rescue=rescue, seed_gate=seed_gate,
+            seed_center=seed_center, side_split=side_split)
+        if stats is not None:
+            stats.append(st)
         out.append(segs[ok].cpu().numpy().astype(np.float64) * ds)
     return out
 

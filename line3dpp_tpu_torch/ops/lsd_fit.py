@@ -7,7 +7,7 @@ each component is one contiguous run; ``C`` is the dump slot of every other
 pixel, and dump pixels lie between the runs.  Per-component tables are
 ``(C, 8)`` float32 rows ``(cos t, sin t, cx, cy, gate, center, 0, 0)``.
 
-The four passes (JAX package: ``line3dpp_tpu/ops/lsd_fit.py``):
+The five passes (JAX package: ``line3dpp_tpu/ops/lsd_fit.py``):
 
 * :func:`moments` (K7): per component Σw, Σwx, Σwy, Σwx², Σwy², Σwxy and
   the pixel count, with w = mag · pix, as a (C, 8) table (column 7 zero);
@@ -16,6 +16,11 @@ The four passes (JAX package: ``line3dpp_tpu/ops/lsd_fit.py``):
   with the component axis (``|cos(ang) ct + sin(ang) st| >= cos_tol``);
   dump pixels are kept when ``dump_keep`` and ``pix != 0``;
 * :func:`gate_moments` (K8): K9, then K7 on the gated pixels, in one pass;
+* :func:`band_counts` (K10): with the table columns 4 and 5 holding the
+  rectangle's ``mid`` and ``width``, per component and band ``(lo_w, lo_c,
+  hi_w, hi_c)`` the number of pixels with ``pix != 0`` and ``lo_w width +
+  lo_c <= 2 (w_proj - mid) <= hi_w width + hi_c``, as a (C, B) float32
+  table, B <= 16 (the rescue's 15 width and side cuts in one pass);
 * :func:`extents` (K11): per component, over the pixels with ``pix != 0``,
   min l_proj, min w_proj, min -l_proj, min -w_proj as a (C, 4) table,
   ``BIG`` for a component without such pixels.
@@ -24,8 +29,7 @@ Each wrapper launches its CUDA kernel (``csrc/lsd_fit.cu``) for CUDA tensors
 and runs its plain torch version for CPU tensors.  The moment sums are
 accumulated in float64 by both versions (the product terms are float32, as
 in the JAX package), so the two differ only in the last bit of the float32
-result; the extents and the gate are exact.  ``band_counts`` (K10, the
-rescue cascade) is not ported yet.
+result; the extents, the gate and the band counts are exact.
 """
 
 from __future__ import annotations
@@ -38,6 +42,10 @@ from . import kernels
 
 BIG = 1e9
 TABLE_COLS = 8
+MAX_BANDS = 16
+# the symmetric width cuts 2 |w_proj - mid| <= width - 0.5 (b + 1)
+SYM_BANDS = tuple((-1.0, 0.5 * (b + 1), 1.0, -0.5 * (b + 1))
+                  for b in range(4))
 
 
 def _rows(slot: torch.Tensor, tables: torch.Tensor, C: int):
@@ -78,6 +86,32 @@ def gate_pixels_plain(slot, xs, ys, ang, pix, tables, dump_keep: bool,
     keep = (pix != 0.0) & (w_proj.abs() <= gate) & aligned
     dump = (pix != 0.0) if dump_keep else torch.zeros_like(keep)
     return torch.where(valid, keep, dump).to(torch.float32)
+
+
+def _bands_tensor(bands, device) -> torch.Tensor:
+    t = torch.as_tensor(bands, dtype=torch.float32, device=device)
+    if t.ndim != 2 or t.shape[1] != 4 or not 1 <= t.shape[0] <= MAX_BANDS:
+        raise ValueError(f"bands: shape {tuple(t.shape)}, expected (B, 4) "
+                         f"with 1 <= B <= {MAX_BANDS}")
+    return t.contiguous()
+
+
+def band_counts_plain(slot, xs, ys, pix, tables, C: int,
+                      bands=SYM_BANDS) -> torch.Tensor:
+    bands = _bands_tensor(bands, slot.device)
+    row, valid = _rows(slot, tables, C)
+    ct, st, cx, cy, mid, width = row[:, :6].unbind(1)
+    dxp = xs - cx
+    dyp = ys - cy
+    w_proj = -dxp * st + dyp * ct
+    s = (2.0 * (w_proj - mid))[:, None]
+    lo = bands[None, :, 0] * width[:, None] + bands[None, :, 1]
+    hi = bands[None, :, 2] * width[:, None] + bands[None, :, 3]
+    hit = ((pix != 0.0) & valid)[:, None] & (s >= lo) & (s <= hi)
+    acc = torch.zeros((C + 1, bands.shape[0]), dtype=torch.int32,
+                      device=slot.device)
+    acc.index_add_(0, slot.long(), hit.to(torch.int32))
+    return acc[:C].to(torch.float32)
 
 
 def extents_plain(slot, xs, ys, pix, tables, C: int) -> torch.Tensor:
@@ -156,6 +190,22 @@ def gate_pixels_cuda(slot, xs, ys, ang, pix, tables, dump_keep: bool,
     return newpix
 
 
+def band_counts_cuda(slot, xs, ys, pix, tables, C: int,
+                     bands=SYM_BANDS) -> torch.Tensor:
+    """Kernel K10."""
+    n, dev = _check_pixels(C, tables, slot=slot, xs=xs, ys=ys, pix=pix)
+    bands = _bands_tensor(bands, dev)
+    B = bands.shape[0]
+    out = torch.empty((C, B), dtype=torch.float32, device=dev)
+    scratch = torch.empty((C, B), dtype=torch.int32, device=dev)
+    p = kernels.ptr
+    kernels.launch("l3d_band_counts", p(slot), p(xs), p(ys), p(pix),
+                   p(tables), p(bands), n, C, B, p(scratch), p(out),
+                   kernels.stream(dev))
+    kernels.LAUNCHES["band_counts"] += 1
+    return out
+
+
 def extents_cuda(slot, xs, ys, pix, tables, C: int) -> torch.Tensor:
     """Kernel K11."""
     n, dev = _check_pixels(C, tables, slot=slot, xs=xs, ys=ys, pix=pix)
@@ -204,8 +254,10 @@ def extents(slot, xs, ys, pix, tables, C: int) -> torch.Tensor:
     return extents_plain(slot, xs, ys, pix, tables, C)
 
 
-def band_counts(*args, **kwargs):
-    """Kernel K10 of the rescue cascade: not ported yet."""
-    raise NotImplementedError(
-        "band_counts (kernel K10, the LSD rescue cascade) is not ported to "
-        "line3dpp_tpu_torch yet (ROADMAP item 13)")
+def band_counts(slot, xs, ys, pix, tables, C: int,
+                bands=SYM_BANDS) -> torch.Tensor:
+    """Pixel counts of every component in each band; ``bands`` is a (B, 4)
+    tensor or nested sequence, the default the 4 symmetric width cuts."""
+    if slot.is_cuda:
+        return band_counts_cuda(slot, xs, ys, pix, tables, C, bands)
+    return band_counts_plain(slot, xs, ys, pix, tables, C, bands)

@@ -222,24 +222,35 @@ def scene_scale(segments: np.ndarray) -> float:
     return float(np.linalg.norm(pts.max(0) - pts.min(0)))
 
 
-def endpoint_coverage(a: np.ndarray, b: np.ndarray, tol: float = 1.0) -> float:
-    """Share of the 2D segments ``a`` (n, 4) that have a segment in ``b``
-    with both endpoints within ``tol`` pixels, in either orientation (1.0
-    when ``a`` is empty).  Mutual coverage is the smaller of the two
-    directions."""
+def nearest_segment(a: np.ndarray, b: np.ndarray):
+    """For each 2D segment of ``a`` (n, 4) the nearest segment of ``b``
+    (m, 4): ``(dist (n,), index (n,))``, the distance being the larger of
+    the two endpoint distances in the better orientation (inf and -1 when
+    ``b`` is empty)."""
     a = np.asarray(a, np.float64).reshape(-1, 4)
     b = np.asarray(b, np.float64).reshape(-1, 4)
-    if len(a) == 0:
-        return 1.0
     if len(b) == 0:
-        return 0.0
+        return np.full(len(a), np.inf), np.full(len(a), -1)
 
     def d(p, q):          # (len(a), len(b)) endpoint distances
         return np.linalg.norm(p[:, None, :] - q[None, :, :], axis=-1)
 
     same = np.maximum(d(a[:, :2], b[:, :2]), d(a[:, 2:], b[:, 2:]))
     flip = np.maximum(d(a[:, :2], b[:, 2:]), d(a[:, 2:], b[:, :2]))
-    return float((np.minimum(same, flip).min(1) <= tol).mean())
+    best = np.minimum(same, flip)
+    index = best.argmin(1)
+    return best[np.arange(len(a)), index], index
+
+
+def endpoint_coverage(a: np.ndarray, b: np.ndarray, tol: float = 1.0) -> float:
+    """Share of the 2D segments ``a`` (n, 4) that have a segment in ``b``
+    with both endpoints within ``tol`` pixels, in either orientation (1.0
+    when ``a`` is empty).  Mutual coverage is the smaller of the two
+    directions."""
+    a = np.asarray(a, np.float64).reshape(-1, 4)
+    if len(a) == 0:
+        return 1.0
+    return float((nearest_segment(a, b)[0] <= tol).mean())
 
 
 def mutual_coverage(a: np.ndarray, b: np.ndarray,

@@ -2,7 +2,7 @@
 
     JAX_PLATFORMS=cpu python tests/make_torch_lsd_reference.py \
         [--width 3072 --height 2304 --ss 1 --views 10 --neighbors 6] \
-        [--out tests/data/...npz]
+        [--rescue] [--out tests/data/...npz]
 
 Renders the first ``--views`` views of the synthetic facade
 (``line3dpp_tpu_torch.utils.synthetic``, ``--ss`` x ``--ss`` supersampling)
@@ -11,6 +11,12 @@ CPU, reconstructs with JAX ``Line3D(Config(optimize=False,
 num_neighbors=--neighbors))`` and writes to the npz:
 the image digests, the segments of every view, the 3D lines, and count_f1,
 recall and precision against the 74 ground-truth lines at 1% scene scale.
+``--rescue`` detects with the rescue cascade (``rescue=True``) and
+reconstructs with ``Config(lsd_rescue=True)`` and its default
+``optimize=True`` (bundled lines); it also writes the number of rescued
+rectangles of every view (``n_rescue``) and their segments
+(``rescued_segments``, the views one after another), and defaults ``--out``
+to ``tests/data/torch_scene2_<width>_rescue_jax_reference.npz``.
 ``chip_smoke.py`` holds the port's detections and lines on the card against
 the default file (3072 x 2304, 10 views); ``tests/test_torch_lsd_scene.py``
 holds the port's CPU run against the 1024 x 768 one, written with
@@ -44,26 +50,42 @@ DEFAULT_OUT = os.path.join(REPO, "tests", "data",
                            "torch_scene2_3072_jax_reference.npz")
 
 
-def pallas_detect(img: np.ndarray) -> np.ndarray:
+def pallas_detect(img: np.ndarray, rescue: bool = False):
     """The JAX package's TPU detection path on the CPU (interpret-mode
-    kernels, per-pixel label gather), with its capacities checked."""
+    kernels, per-pixel label gather), with its capacities checked.
+    Returns the segments, the number of rescued rectangles and their
+    segments: the accepted components of each round that fail one of the
+    plain size, density and NFA tests."""
     import jax.numpy as jnp
     from line3dpp_tpu.ops import lsd, lsd_cc, lsd_fit
 
     saved = [(lsd_cc, "cc_tiles")] + [
         (lsd_fit, n) for n in ("moments", "gate_moments", "gate_pixels",
-                               "extents")]
+                               "extents", "band_counts")]
     orig = [getattr(m, n) for m, n in saved]
     for (m, n), fn in zip(saved, orig):
         setattr(m, n, functools.partial(fn, interpret=True))
     lsd._lsd_round.clear_cache()
+    lsd_round, rescued = lsd._lsd_round, []
+
+    def recording_round(*args, **kwargs):
+        out = lsd_round(*args, **kwargs)
+        segs_r, ok_r, d_r = np.asarray(out[0]), np.asarray(out[1]), out[3]
+        plain = ((np.asarray(d_r["npix"]) >= 5.0)
+                 & (np.asarray(d_r["density"]) >= lsd.DENSITY_TH)
+                 & (np.asarray(d_r["log_nfa"]) > lsd.LOG_EPS))
+        rescued.append(segs_r[ok_r & ~plain])
+        return out
+
+    lsd._lsd_round = recording_round
     try:
         H, W = img.shape
         segs, ok, d = lsd._lsd_core(jnp.asarray(img, jnp.float32), H, W,
                                     use_pallas_cc=True,
-                                    use_pallas_gather=False)
+                                    use_pallas_gather=False, rescue=rescue)
         segs, ok = np.asarray(segs), np.asarray(ok)
     finally:
+        lsd._lsd_round = lsd_round
         for (m, n), fn in zip(saved, orig):
             setattr(m, n, fn)
         lsd._lsd_round.clear_cache()
@@ -76,7 +98,12 @@ def pallas_detect(img: np.ndarray) -> np.ndarray:
     if any(got > cap for got, cap in caps):
         raise RuntimeError(f"a capacity of the JAX Pallas path overflowed: "
                            f"{caps}")
-    return segs[ok].astype(np.float64)
+    rescued = np.concatenate(rescued).astype(np.float64)
+    if len(rescued) != int(d["n_rescue"]):
+        raise RuntimeError(f"{len(rescued)} accepted components fail a plain "
+                           f"test, the detector counts {int(d['n_rescue'])} "
+                           f"rescued")
+    return segs[ok].astype(np.float64), len(rescued), rescued
 
 
 def main() -> None:
@@ -86,9 +113,14 @@ def main() -> None:
     ap.add_argument("--ss", type=int, default=1)
     ap.add_argument("--views", type=int, default=10)
     ap.add_argument("--neighbors", type=int, default=6)
-    ap.add_argument("--out", default=DEFAULT_OUT)
+    ap.add_argument("--out", default=None)
+    ap.add_argument("--rescue", action="store_true")
     ap.add_argument("--path", choices=("pallas", "xla"), default="pallas")
     opts = ap.parse_args()
+    if opts.out is None:
+        opts.out = DEFAULT_OUT if not opts.rescue else os.path.join(
+            REPO, "tests", "data",
+            f"torch_scene2_{opts.width}_rescue_jax_reference.npz")
 
     import jax
 
@@ -110,19 +142,25 @@ def main() -> None:
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     if opts.path == "pallas":
-        detect = pallas_detect
+        detect = functools.partial(pallas_detect, rescue=opts.rescue)
     else:
-        detect = lsd.detect
-    segs = []
+        detect = lambda im: (lsd.detect(im, rescue=opts.rescue), -1,
+                             np.zeros((0, 4)))
+    segs, n_rescue, rescued = [], [], []
     for i, img in enumerate(images):
         t0 = time.perf_counter()
-        segs.append(detect(img))
-        print(f"view {i}: {len(segs[-1])} segments in "
+        s, nr, rs = detect(img)
+        segs.append(s)
+        n_rescue.append(nr)
+        rescued.append(rs)
+        print(f"view {i}: {len(s)} segments, {nr} rescued, in "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     t0 = time.perf_counter()
-    pipe = l3d.Line3D(l3d.Config(optimize=False,
-                                      num_neighbors=opts.neighbors))
+    cfg = (l3d.Config(lsd_rescue=True, num_neighbors=opts.neighbors)
+           if opts.rescue else
+           l3d.Config(optimize=False, num_neighbors=opts.neighbors))
+    pipe = l3d.Line3D(cfg)
     for i, (c, s) in enumerate(zip(cams, segs)):
         pipe.add_view(i, l3d.Camera(c.K, c.R, c.t, c.width, c.height), s)
     pipe.match_images()
@@ -144,6 +182,8 @@ def main() -> None:
         neighbors=opts.neighbors,
         digests=np.array([synthetic.image_digest(im) for im in images]),
         seg_counts=np.array([len(s) for s in segs]),
+        n_rescue=np.array(n_rescue), optimize=bool(cfg.optimize),
+        rescued_segments=np.concatenate(rescued),
         segments=np.concatenate(segs).astype(np.float64),
         line_counts=np.array([len(p) for p in pred]),
         lines=(np.concatenate(pred) if pred else np.zeros((0, 6))),

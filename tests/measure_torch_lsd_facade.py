@@ -50,6 +50,28 @@ DEFAULT_REF = os.path.join(REPO, "tests", "data",
                            "torch_scene2_3072_jax_reference.npz")
 
 
+def moments_f32(seed):
+    """A stand-in for ``lsd_fit.moments_plain`` that sums the float32
+    moment terms in float32: in list order, or in the order of a random
+    permutation drawn from ``seed``."""
+    import torch
+    from line3dpp_tpu_torch.ops import lsd_fit
+
+    def moments(slot, xs, ys, mag, pix, C):
+        terms = lsd_fit._moment_terms(xs, ys, mag, pix)
+        key = slot.long()
+        if seed is not None:
+            perm = torch.randperm(key.numel(), generator=torch.Generator(
+                ).manual_seed(seed))
+            key, terms = key[perm], terms[perm]
+        acc = torch.zeros((C + 1, 7), dtype=torch.float32)
+        acc.index_add_(0, key, terms)     # sequential on the CPU
+        out = torch.zeros((C, lsd_fit.TABLE_COLS), dtype=torch.float32)
+        out[:, :7] = acc[:C]
+        return out
+    return moments
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--ref", default=DEFAULT_REF)
@@ -66,21 +88,6 @@ def main() -> None:
     from line3dpp_tpu_torch.utils import golden, synthetic
 
     torch.set_num_threads(opts.threads)
-
-    def moments_f32(seed):
-        def moments(slot, xs, ys, mag, pix, C):
-            terms = lsd_fit._moment_terms(xs, ys, mag, pix)
-            key = slot.long()
-            if seed is not None:
-                perm = torch.randperm(key.numel(), generator=torch.Generator(
-                    ).manual_seed(seed))
-                key, terms = key[perm], terms[perm]
-            acc = torch.zeros((C + 1, 7), dtype=torch.float32)
-            acc.index_add_(0, key, terms)     # sequential on the CPU
-            out = torch.zeros((C, lsd_fit.TABLE_COLS), dtype=torch.float32)
-            out[:, :7] = acc[:C]
-            return out
-        return moments
 
     orders = {"f64": lsd_fit.moments_plain, "f32": moments_f32(None)}
     for s in range(opts.shuffles):

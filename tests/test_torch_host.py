@@ -167,12 +167,13 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     code = textwrap.dedent("""
         import sys
         import torch
+        import importlib, pkgutil
         import line3dpp_tpu_torch as lt
-        from line3dpp_tpu_torch.models import pipeline, step
-        from line3dpp_tpu_torch.ops import (affinity, clustering, fitting,
-            geometry, kernels, matching, scoring, sweep)
-        from line3dpp_tpu_torch.utils import golden, segments_cache, \\
-            testdata, writers
+        names = [m.name for m in pkgutil.walk_packages(
+            lt.__path__, "line3dpp_tpu_torch.")]
+        assert len(names) >= 25, names
+        for name in names:
+            importlib.import_module(name)
         bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
                or m == "line3dpp_tpu" or m.startswith("line3dpp_tpu.")]
         assert not bad, bad
@@ -184,6 +185,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         else:
             raise AssertionError("Line3D() ran without a card")
         lt.Line3D(lt.Config(optimize=False), device="cpu")
+        assert lt.Line3D(device="cpu").config.optimize
         print("clean")
     """)
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -200,6 +202,40 @@ def test_chip_smoke_imports_neither_jax_nor_the_jax_package():
     assert "import line3dpp_tpu\n" not in src
 
 
+def test_chip_smoke_imports_leave_jax_unloaded():
+    """Every module that chip_smoke.py imports anywhere in its source,
+    imported in a fresh process: neither JAX nor the JAX package loads."""
+    import ast
+
+    with open(os.path.join(REPO, "chip_smoke.py")) as f:
+        tree = ast.parse(f.read())
+    mods = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            mods.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            mods.add(node.module)
+            mods.update(f"{node.module}.{a.name}" for a in node.names)
+    assert "line3dpp_tpu_torch.ops.bundling" in mods and "torch" in mods
+    code = textwrap.dedent(f"""
+        import importlib, sys
+        for name in {sorted(mods)!r}:
+            try:
+                importlib.import_module(name)
+            except ModuleNotFoundError as e:
+                # "from module import function" gives module.function here
+                assert e.name == name, (name, e)
+        bad = [m for m in sys.modules if m.split(".")[0] in
+               ("jax", "jaxlib", "line3dpp_tpu")]
+        assert not bad, bad
+        print("clean")
+    """)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "clean"
+
+
 def test_line3d_without_a_card_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -209,7 +245,7 @@ def test_line3d_without_a_card_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(), 8),                                   # optimize defaults on
+    (dict(perform_rdd=True), 13),                  # optimize defaults on
     (dict(optimize=False, perform_rdd=True), 13),
     (dict(optimize=False, collinearity_t=2.0), 13),
     (dict(optimize=False, split_bimodal_t=1.1), 13),

@@ -41,7 +41,8 @@ from test_torch_lsd_cases import draw_segment, lines_image, \
     one_torch_thread, random_sorted_case, random_tables  # noqa: F401
 
 TILE = (8, 128)
-FIT_KERNELS = ("moments", "gate_moments", "gate_pixels", "extents")
+FIT_KERNELS = ("moments", "gate_moments", "gate_pixels", "extents",
+               "band_counts")
 
 
 def _t(*arrays):
@@ -336,18 +337,21 @@ def _fit_case_image():
 IMAGES = {"test_lsd": lines_image, "test_lsd_fit": _fit_case_image}
 
 
-def _jax_pallas_core(img):
+def _jax_pallas_core(img, diag=None, **opts):
     """JAX ``_lsd_core`` as it runs on a TPU (Pallas CC and fit kernels,
-    here in interpret mode; the per-pixel label gather)."""
+    here in interpret mode; the per-pixel label gather), with its LSD
+    options ``opts``; its ``n_rescue`` and ``n_split`` go into ``diag``."""
     saved = [(jcc, "cc_tiles")] + [(jfit, n) for n in FIT_KERNELS]
     orig = [getattr(m, n) for m, n in saved]
     for (m, n), fn in zip(saved, orig):
         setattr(m, n, functools.partial(fn, interpret=True))
     jlsd._lsd_round.clear_cache()
     try:
-        segs, ok, _ = jlsd._lsd_core(jnp.asarray(img), *img.shape,
+        segs, ok, d = jlsd._lsd_core(jnp.asarray(img), *img.shape,
                                      use_pallas_cc=True,
-                                     use_pallas_gather=False)
+                                     use_pallas_gather=False, **opts)
+        if diag is not None:
+            diag.update({k: int(d[k]) for k in ("n_rescue", "n_split")})
     finally:
         for (m, n), fn in zip(saved, orig):
             setattr(m, n, fn)

@@ -167,17 +167,30 @@ def test_tile_labels_plus_merge_equal_global_components(rng):
 
 
 def test_band_counts_and_lsd_options_raise():
+    """What still raises: malformed bands, and the pipeline options that
+    are not ported, each naming its ROADMAP item.  The LSD options run:
+    ``add_image`` under ``Config(lsd_rescue=True, lsd_seed_gate=True)``
+    detects with them and records the detector's stats."""
+    z = torch.zeros(4)
+    with pytest.raises(ValueError, match="bands"):
+        lsd_fit.band_counts(z.int(), z, z, z, torch.zeros((1, 8)), 1,
+                            bands=((1.0, 2.0),))
     with pytest.raises(NotImplementedError, match="item 13"):
-        lsd_fit.band_counts()
+        lt.Line3D(lt.Config(lsd_rescue=True, collinearity_t=2.0),
+                  device="cpu")
     img = lines_image()
-    for opt in ("rescue", "seed_gate", "seed_center", "side_split"):
-        with pytest.raises(NotImplementedError, match="item 13"):
-            lsd.detect(img, device="cpu", **{opt: True})
-    pipe = lt.Line3D(lt.Config(optimize=False, lsd_rescue=True),
-                     device="cpu")
-    cams = lt.Camera(np.eye(3), np.eye(3), np.zeros(3), 900, 700)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        pipe.add_image(0, cams, np.zeros((700, 900), np.uint8))
+    cam = lt.Camera(np.diag([200.0, 200.0, 1.0]), np.eye(3), np.zeros(3),
+                    200, 160)
+    pipe = lt.Line3D(lt.Config(lsd_rescue=True, lsd_seed_gate=True,
+                               min_image_width=150), device="cpu")
+    pipe.add_image(0, cam, img)
+    want = lsd.detect(img, rescue=True, seed_gate=True, device="cpu")
+    assert len(want) >= 3 and len(pipe.detect_stats) == 1
+    assert "n_rescue" in pipe.detect_stats[0]
+    lens = np.hypot(want[:, 2] - want[:, 0], want[:, 3] - want[:, 1])
+    np.testing.assert_array_equal(
+        pipe._views[0].segments,
+        want[lens >= cam.diagonal * pipe.config.min_line_length_factor])
 
 
 def test_betainc_against_float64_series():

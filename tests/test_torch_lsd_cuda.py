@@ -1,4 +1,4 @@
-"""Kernels K4-K9 and K11 and LSD detection on a CUDA device,
+"""Kernels K4-K11, LSD detection and line bundling on a CUDA device,
 against their plain PyTorch versions.  Marked ``gpu``; each test asks the
 ``cuda`` fixture for the device and skips where there is none.
 
@@ -142,6 +142,117 @@ def test_fit_kernels_at_detection_sizes(cuda):
     assert torch.equal(np8, np9)
 
 
+def _band_tables(rng, tables):
+    """Columns 4 and 5 as K10 reads them: band mid-line and width."""
+    t = tables.copy()
+    t[:, 4] = rng.uniform(-3, 3, len(t))
+    t[:, 5] = rng.uniform(0.5, 12.0, len(t))
+    return t
+
+
+@pytest.mark.parametrize("bands", [lsd_fit.SYM_BANDS, lsd.RESCUE_BANDS,
+                                   lsd.RESCUE_BANDS + lsd_fit.SYM_BANDS[:1]],
+                         ids=["sym4", "rescue15", "full16"])
+def test_k10_equals_plain_exactly(cuda, bands):
+    """K10 on the random sorted-slot case of tests/test_lsd_fit.py and at
+    a detection size (300k pixels moved to within 8 px of their
+    component's axis, so the bands hold pixels): integer counts, equal to
+    the plain version."""
+    rng = np.random.default_rng(0)
+    slot, xs, ys, _, pix = random_sorted_case(rng)
+    tables = _band_tables(rng, random_tables(rng, 256, len(slot))[0])
+    small = (slot, xs, ys, pix, tables, 256)
+    slot, xs, ys, _, pix, tables, _, c = _big_sorted_case(4)
+    tables = _band_tables(rng, tables)
+    row = tables[np.minimum(slot, c - 1)]
+    along, across = rng.uniform(-60, 60, len(slot)), rng.uniform(-8, 8,
+                                                                 len(slot))
+    xs = np.rint(row[:, 2] + along * row[:, 0] - across * row[:, 1]).astype(
+        np.float32)
+    ys = np.rint(row[:, 3] + along * row[:, 1] + across * row[:, 0]).astype(
+        np.float32)
+    for slot, xs, ys, pix, tables, c in (small, (slot, xs, ys, pix, tables,
+                                                 c)):
+        t = [torch.from_numpy(v).to(cuda) for v in (slot, xs, ys, pix,
+                                                    tables)]
+        before = kernels.LAUNCHES["band_counts"]
+        got = lsd_fit.band_counts(*t, c, bands)
+        assert kernels.LAUNCHES["band_counts"] == before + 1
+        want = lsd_fit.band_counts_plain(*t, c, bands)
+        assert got.shape == (c, len(bands)) and got.dtype == torch.float32
+        assert torch.equal(got, want)
+        assert torch.equal(got.cpu(), lsd_fit.band_counts(
+            *[v.cpu() for v in t], c, bands))
+    assert float(got.sum()) > 1e5
+
+
+def test_rescue_detection_on_cuda_matches_cpu(cuda):
+    """Facade view 4 at 512 x 384 (4 rescued rectangles on the CPU) with
+    every option that reaches K10: the card rescues the same number and
+    finds the same segments (atol 0.05 px)."""
+    quads, _ = synthetic.build_scene()
+    cam = synthetic.make_cameras(10, width=512, height=384)[4]
+    img = synthetic.render(cam, quads, seed=104, ss=1)
+    for opts in (dict(rescue=True), dict(rect_improve=True),
+                 dict(rescue=True, seed_gate=True, side_split=True)):
+        kernels.reset_launches()
+        st_g, st_c = [], []
+        got = lsd.detect_batch([img], device=cuda, stats=st_g, **opts)[0]
+        assert kernels.LAUNCHES["band_counts"] == 3
+        want = lsd.detect_batch([img], device="cpu", stats=st_c, **opts)[0]
+        assert st_g[0]["n_rescue"] == st_c[0]["n_rescue"]
+        assert st_g[0]["n_split"] == st_c[0]["n_split"]
+        if "rescue" in opts and len(opts) == 1:
+            assert st_g[0]["n_rescue"] >= 3
+        assert len(got) == len(want)
+        d = np.abs(got[:, None] - want[None]).max(-1)
+        assert d.min(1).max() <= 0.05 and d.min(0).max() <= 0.05
+
+
+def test_bundling_on_cuda_matches_cpu_and_repeats(cuda):
+    """Views 0-5 under the default Config() on the card against the CPU
+    run (count_f1 >= 0.99 at 0.1% scene scale), and two LM runs on the card
+    give the same parameters bit for bit."""
+    from line3dpp_tpu_torch.ops import bundling
+    from line3dpp_tpu_torch.utils.testdata import load_views
+
+    views = load_views(range(6))
+    out = []
+    cap = {}
+    for dev in (cuda, "cpu"):
+        pipe = lt.Line3D(lt.Config(max_line_segments=800, num_neighbors=4),
+                         device=dev)
+        for v in views:
+            pipe.add_view(v.cam_id, lt.Camera(v.K, v.R, v.t, v.width,
+                                              v.height), v.segments)
+        pipe.match_images()
+        out.append([l.segments3d for l in pipe.reconstruct_3d_lines()])
+    assert abs(len(out[0]) - len(out[1])) <= 1 and len(out[1]) > 100
+    scale = golden.scene_scale(np.concatenate(out[1]))
+    assert golden.line_match_metrics(out[0], out[1], 1e-3 * scale)[
+        "count_f1"] >= 0.99
+
+    rng = np.random.default_rng(2)
+    C, O = 300, 4000
+    oc = torch.from_numpy(rng.integers(0, C, O)).to(cuda)
+    P1 = torch.from_numpy(rng.normal(size=(C, 3)).astype(np.float32) * 3)
+    P2 = P1 + torch.from_numpy(rng.normal(size=(C, 3)).astype(np.float32))
+    m, v = bundling.plucker_from_endpoints(P1.to(cuda), P2.to(cuda))
+    s, w = bundling.params_from_plucker(m, v)
+    params0 = torch.cat([s, w[:, None]], 1)
+    eye = torch.eye(3, device=cuda).expand(O, 3, 3).contiguous()
+    obs = (eye, eye, torch.randn((O, 3), device=cuda) * 0.1,
+           torch.rand((O, 3), device=cuda), torch.rand((O, 3), device=cuda),
+           torch.nn.functional.normalize(torch.randn((O, 2), device=cuda),
+                                         dim=1))
+    a = bundling.lm_optimize(params0, oc, *obs, num_clusters=C, iterations=20)
+    b = bundling.lm_optimize(params0, oc, *obs, num_clusters=C, iterations=20)
+    assert torch.isfinite(a).all() and torch.equal(a, b)
+    cost = bundling.lm_cost(a, oc, *obs, num_clusters=C)
+    assert float(cost.sum()) < float(bundling.lm_cost(
+        params0, oc, *obs, num_clusters=C).sum())
+
+
 def test_empty_and_componentless_inputs(cuda):
     z = torch.zeros(0, device=cuda)
     zi = torch.zeros(0, dtype=torch.int32, device=cuda)
@@ -153,6 +264,8 @@ def test_empty_and_componentless_inputs(cuda):
                                          tab, True, 0.9, 0)
     assert torch.equal(np8, ones) and mom.shape == (0, 8)
     assert lsd_fit.extents_cuda(slot, ones, ones, ones, tab, 0).shape == \
+        (0, 4)
+    assert lsd_fit.band_counts_cuda(slot, ones, ones, ones, tab, 0).shape == \
         (0, 4)
 
 
