@@ -5,8 +5,10 @@
 
 1. Prints the card (``nvidia-smi`` name and power limit, device name and
    count); exits non-zero when no CUDA device is present.
-2. Builds the CUDA kernels from ``line3dpp_tpu_torch/csrc`` (timed) and
-   prints ptxas' register and spill report.
+2. Builds the CUDA kernels from ``line3dpp_tpu_torch/csrc`` (timed),
+   prints ptxas' registers, shared memory and spills of every kernel, and
+   counts K1's reject path in SASS instructions per candidate
+   (``cuobjdump -sass``, where the toolkit has it).
 3. Cached segments to lines: loads the 26 bundled views and holds kernels
    K1-K3 against their plain PyTorch versions on the card at that path's
    shapes (26 views, S = 3000, N = 16, k = 10, M = 160), timing both with
@@ -22,7 +24,8 @@
    ``tests/make_torch_lsd_reference.py`` with the JAX package on the CPU),
    holds the detection kernels K4-K11 against their plain versions
    on view 0's round-1 inputs and on synthetic full-size grids at a real
-   photo's density (``FULL_SIZE_ACTIVE``), compares every view's
+   photo's density (``FULL_SIZE_ACTIVE``) and with long edges
+   (``synthetic_stripes``), compares every view's
    detections with the JAX ones (``DETECT_*``), reconstructs from JAX's
    detections (JAX's lines at count_f1 >= 0.99, and count_f1, recall and
    precision against the 74 ground-truth lines within 0.02 of JAX's), and
@@ -74,6 +77,8 @@ BUNDLING_NPZ = os.path.join(REPO, "tests", "data",
 # H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor cores, HBM3
 PEAK_F32 = 67e12            # operations / s
 PEAK_BYTES = 3.35e12        # bytes / s
+H100_SMS = 132
+LANES_PER_SM = 128          # 4 warp schedulers x 32 lanes issue per clock
 
 # f32 operations per unit of work, counted from the kernels' source
 K1_OPS_PER_CANDIDATE = 36   # 4 epipolar dots, 2 divisions, overlap (matching.cu)
@@ -123,6 +128,12 @@ LM_COST_RTOL = 1e-3
 # active share of the synthetic full-size grids: real photos' round 1
 # (30-47%), and 57% for a 2.8 M-pixel list (the JAX package's cap NC)
 FULL_SIZE_ACTIVE = (0.30, 0.47, 0.57)
+# what the full_size line keeps of each kernel's row
+FULL_SIZE_KEYS = ("name", "max_abs_err", "ms", "device_ms", "plain_ms",
+                  "bound_ms", "bound_by", "library_ms", "library_device_ms")
+# the long-edge grid: bands of this many rows of one angle, 47% active
+STRIPE_ROWS = 8
+STRIPE_ACTIVE = 0.47
 
 
 def fail(msg: str) -> None:
@@ -352,10 +363,11 @@ def check_k3(fm, nbr, tgt_seg, knn):
         ms=cuda_ms(k3, reps=20), device_ms=device_ms(k3),
         plain_ms=cuda_ms(plain, reps=20),
         bound_ms=1e3 * moved / PEAK_BYTES, bound_by="bytes",
-        library_ms=cuda_ms(library, reps=20))
+        library_ms=cuda_ms(library, reps=20),
+        library_device_ms=device_ms(library))
 
 
-def kernel_checks(inp, cfg, dev):
+def kernel_checks(inp, cfg, dev, k1_sass=None, clock_mhz=None):
     """Each kernel against its plain version at the main path's shapes;
     K2 and K3 take the inputs the previous stages give them."""
     import torch
@@ -376,6 +388,18 @@ def kernel_checks(inp, cfg, dev):
           f"M={N * knn} pairs={int(t.pair_valid.sum())}", flush=True)
     pm, (k1, candidates) = check_k1(t, cfg.epipolar_overlap, knn)
     print(f"K1 work: {candidates} candidate segment pairs", flush=True)
+    if k1_sass and clock_mhz:
+        # every lane of the card issuing one reject-path instruction a clock
+        ceiling = 1e3 * k1_sass["per_candidate"] * candidates / (
+            H100_SMS * LANES_PER_SM * clock_mhz * 1e6)
+        print(f"K1 issue-rate ceiling: {k1_sass['per_candidate']:.2f} SASS "
+              f"instructions x {candidates} candidates over {H100_SMS} SMs x "
+              f"{LANES_PER_SM} lanes at {clock_mhz:.0f} MHz = {ceiling:.3f} "
+              f"ms; bound {k1['bound_ms']:.3f} ms at "
+              f"{K1_OPS_PER_CANDIDATE} f32 operations per candidate",
+              flush=True)
+        k1.update(sass_per_candidate=k1_sass["per_candidate"],
+                  issue_ceiling_ms=ceiling)
 
     d_p1 = step.regroup(pm.d_p1, V, N).contiguous()
     d_p2 = step.regroup(pm.d_p2, V, N).contiguous()
@@ -410,16 +434,22 @@ def bound(ops: float, moved: float) -> tuple[float, str]:
 
 
 def kernel_row(name, source, replaces, err, fn, plain_ms, ops, moved,
-               library_ms=None) -> dict:
+               library=None) -> dict:
     """The kernels line's entry of the wrapper call ``fn``: ``ms`` by CUDA
     events around 20 calls (the host's share of the wrapper included),
-    ``device_ms`` the card's busy time per call."""
+    ``device_ms`` the card's busy time per call; the same two times of the
+    PyTorch call ``library`` that computes the same function, where there
+    is one, so that card compares with card and call with call."""
     b_ms, by = bound(ops, moved)
-    return dict(name=name, route="cuda",
-                source=f"line3dpp_tpu_torch/csrc/{source}",
-                replaces=replaces, max_abs_err=err, ms=cuda_ms(fn, 20),
-                device_ms=device_ms(fn), plain_ms=plain_ms,
-                bound_ms=b_ms, bound_by=by, library_ms=library_ms)
+    row = dict(name=name, route="cuda",
+               source=f"line3dpp_tpu_torch/csrc/{source}",
+               replaces=replaces, max_abs_err=err, ms=cuda_ms(fn, 20),
+               device_ms=device_ms(fn), plain_ms=plain_ms,
+               bound_ms=b_ms, bound_by=by, library_ms=None)
+    if library is not None:
+        row.update(library_ms=cuda_ms(library, 20),
+                   library_device_ms=device_ms(library))
+    return row
 
 
 def render_scene(ref):
@@ -464,6 +494,127 @@ def synthetic_round1(frac: float, seed: int, dev):
     idx = torch.nonzero(active.reshape(-1))[:, 0]
     return (angle.contiguous(), active, idx, mag[idx],
             angle.reshape(-1)[idx], (th, tw))
+
+
+def synthetic_stripes(frac: float, seed: int, dev):
+    """Round-1 inputs on the same full-size grid with long edges: bands of
+    STRIPE_ROWS rows of one level-line angle each (no noise) and ``frac``
+    of the pixels active, so that components run along the bands across
+    many 32 x 128 patches of kernel K4, up to the tile borders: the patch
+    design's worst case, where the 8 x 8 blocks of synthetic_round1 are its
+    best."""
+    import math
+    import torch
+    from line3dpp_tpu_torch.ops import lsd
+
+    _, _, th, tw, hp, wp = lsd._statics(2304, 3072)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    band = (torch.rand((hp // STRIPE_ROWS, 1), generator=g, device=dev)
+            * (2 * math.pi) - math.pi)
+    angle = band.repeat_interleave(STRIPE_ROWS, 0).expand(hp, wp)
+    active = torch.rand((hp, wp), generator=g, device=dev) < frac
+    mag = 2.0 + 60.0 * torch.rand(hp * wp, generator=g, device=dev)
+    idx = torch.nonzero(active.reshape(-1))[:, 0]
+    angle = angle.contiguous()
+    return (angle, active, idx, mag[idx], angle.reshape(-1)[idx], (th, tw))
+
+
+def ptxas_report(build_log: str) -> list[str]:
+    """One line per kernel from the build log's ``ptxas -v`` report: the
+    source, the kernel's name (demangled where cu++filt exists), its
+    registers, shared memory and spills."""
+    names = []
+    for line in build_log.splitlines():
+        if "Compiling entry function" in line:
+            names.append(line.split("'")[1])
+    demangled = dict(zip(names, names))
+    filt = shutil.which("cu++filt") or "/usr/local/cuda/bin/cu++filt"
+    if names and os.path.exists(filt):
+        out = subprocess.run([filt], input="\n".join(names),
+                             capture_output=True, text=True, timeout=60)
+        if out.returncode == 0:
+            demangled = dict(zip(names, out.stdout.splitlines()))
+    rows, src, name, spill = [], "", "", ""
+    for line in build_log.splitlines():
+        line = line.strip()
+        if line.startswith("=="):
+            src = line[2:].strip()
+        elif "Compiling entry function" in line:
+            name = demangled[line.split("'")[1]]
+            name = name.replace("(int)", "").split("(")[0]
+            name = name.split("::")[-1]
+        elif "spill stores" in line:
+            spill = line
+        elif line.startswith("ptxas info") and "Used" in line and name:
+            rows.append(f"{src} {name}: {line.split(':', 1)[1].strip()}; "
+                        f"{spill}")
+            name = ""
+    return rows
+
+
+def k1_reject_path(sass: str, knn: int) -> dict | None:
+    """Instructions per candidate of K1's reject path in ``match_kernel<knn>``
+    from ``cuobjdump -sass``.  The step loop is the innermost loop that
+    holds four or more LDS.128 (the targets' float4s); its pre-tests have
+    no branch, so its first forward branch skips the exact path when no
+    target survives.  A step with no survivor runs from the loop head to
+    that branch and from the branch's target to the back-edge; the step
+    pre-tests as many targets as it has LDS.128 before the branch."""
+    import re
+
+    funcs = sass.split("Function : ")
+    body = next((f for f in funcs[1:] if f"match_kernelILi{knn}E" in
+                 f.split("\n", 1)[0]), None)
+    if body is None:
+        return None
+    ins = [(int(m.group(1), 16), m.group(2).strip()) for m in re.finditer(
+        r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", body)]
+
+    def target(t):
+        m = re.search(r"\bBRA\s+(?:!?U?P\d,\s*)?(0x[0-9a-f]+)", t)
+        return int(m.group(1), 16) if m else None
+
+    def loads(lo, hi):
+        return sum(1 for a, t in ins if lo <= a <= hi and "LDS.128" in t)
+
+    branches = [(a, target(t)) for a, t in ins if target(t) is not None]
+    loops = [(a - b, a, b) for a, b in branches if b < a and loads(b, a) >= 4]
+    if not loops:
+        return None
+    _, back, head = min(loops)
+    fwd = [(a, b) for a, b in branches if head <= a < back and a < b <= back]
+    if not fwd:
+        return None
+    skip, inc = min(fwd)
+    group = loads(head, skip)
+    if group < 4:
+        return None
+    step = (skip - head) // 16 + 1 + (back - inc) // 16 + 1
+    return dict(group=group, per_candidate=step / group, step=step)
+
+
+def k1_sass_info(lib: str, knn: int) -> dict | None:
+    """K1's reject path in SASS instructions per candidate (printed), from
+    ``cuobjdump -sass`` of the kernel library where the toolkit has it."""
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        print("K1 SASS: cuobjdump is absent from this toolkit; the reject "
+              "path is not counted", flush=True)
+        return None
+    out = subprocess.run([tool, "-sass", lib], capture_output=True,
+                         text=True, timeout=300)
+    info = k1_reject_path(out.stdout, knn) if out.returncode == 0 else None
+    if info is None:
+        print(f"K1 SASS: match_kernel<{knn}>'s pre-test step was not found "
+              f"in cuobjdump's output (rc {out.returncode})", flush=True)
+        return None
+    print(f"K1 SASS, match_kernel<{knn}>: a step of {info['group']} "
+          f"targets with no survivor "
+          f"{info['step']}, so {info['per_candidate']:.2f} per candidate on "
+          f"the reject path (K1_OPS_PER_CANDIDATE = {K1_OPS_PER_CANDIDATE} "
+          f"stays the bound's yardstick)", flush=True)
+    return info
 
 
 def check_lsd_kernels(angle, active, idx, mag_c, ang_c, tile, dev,
@@ -518,7 +669,7 @@ def check_lsd_kernels(angle, active, idx, mag_c, ang_c, tile, dev,
         lambda: lsd_gather.gather_labels_cuda(flat, idx),
         cuda_ms(lambda: lsd_gather.gather_labels_plain(flat, idx), 20),
         0, nbytes(idx, got6) + 4 * idx.numel(),
-        library_ms=cuda_ms(lambda: torch.index_select(flat, 0, idx), 20)))
+        library=lambda: torch.index_select(flat, 0, idx)))
 
     pl = lsd._pixel_list(angle, active, idx, mag_c, ang_c, tol, tile)
     n, C = pl["n"], pl["C"]
@@ -550,7 +701,7 @@ def check_lsd_kernels(angle, active, idx, mag_c, ang_c, tile, dev,
         lambda: lsd_fit.moments_cuda(slot, xs, ys, mag, pix, C),
         cuda_ms(lambda: lsd_fit.moments_plain(slot, xs, ys, mag, pix, C), 5),
         K7_OPS_PER_PIXEL * n_real, nbytes(slot, xs, ys, mag, pix, mom),
-        library_ms=cuda_ms(lambda: acc7.index_add_(0, slot_l, terms), 20)))
+        library=lambda: acc7.index_add_(0, slot_l, terms)))
 
     # the first fit's tables, and K11 on them: exact minima
     tables, npix, _ = lsd._axis_tables(mom_p)
@@ -574,8 +725,7 @@ def check_lsd_kernels(angle, active, idx, mag_c, ang_c, tile, dev,
         cuda_ms(lambda: lsd_fit.extents_plain(slot, xs, ys, pix, tables, C),
                 5),
         K11_OPS_PER_PIXEL * n_real, nbytes(slot, xs, ys, pix, tables, ext),
-        library_ms=cuda_ms(
-            lambda: acc11.scatter_reduce_(0, idx4, vals, "amin"), 20)))
+        library=lambda: acc11.scatter_reduce_(0, idx4, vals, "amin")))
 
     # the first refine step's gate, as _lsd_round builds it: K8 against its
     # plain version and its newpix against K9's on the same inputs
@@ -984,6 +1134,14 @@ def main() -> None:
         timeout=60)
     check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}")
     smi_line = smi.stdout.strip().splitlines()[0]
+    clk = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60)
+    try:
+        clock_mhz = float(clk.stdout.strip().splitlines()[0])
+    except (ValueError, IndexError):
+        clock_mhz = None
     kind = torch.cuda.get_device_name(0)
     print(f"card: {smi_line} | torch {torch.__version__} cuda "
           f"{torch.version.cuda} | {kind} x{torch.cuda.device_count()}",
@@ -1012,9 +1170,9 @@ def main() -> None:
         build_log = f.read()
     print(f"kernels built in {build_s:.1f} s: {lib}; native union-find: "
           f"{native}", flush=True)
-    for line in build_log.splitlines():
-        if "registers" in line or "spill" in line or line.startswith("=="):
-            print("  " + line.strip(), flush=True)
+    for line in ptxas_report(build_log):
+        print("  ptxas: " + line, flush=True)
+    k1_sass = k1_sass_info(lib, knn=10)
 
     # ---- each kernel against its plain version at main-path shapes
     views = load_views()
@@ -1023,7 +1181,7 @@ def main() -> None:
     for v in views:
         setup.add_view(v.cam_id, lt.Camera(v.K, v.R, v.t, v.width, v.height),
                        v.segments)
-    rows = kernel_checks(setup.step_inputs(), cfg, dev)
+    rows = kernel_checks(setup.step_inputs(), cfg, dev, k1_sass, clock_mhz)
     del setup
     torch.cuda.synchronize()
 
@@ -1108,11 +1266,14 @@ def main() -> None:
     full = {}
     for frac in FULL_SIZE_ACTIVE:
         full[f"active {frac}"] = [
-            {k: r[k] for k in ("name", "max_abs_err", "ms", "device_ms",
-                               "plain_ms", "bound_ms", "bound_by",
-                               "library_ms")}
+            {k: r.get(k) for k in FULL_SIZE_KEYS}
             for r in check_lsd_kernels(*synthetic_round1(frac, 0, dev), dev,
                                        f"synthetic, {frac} active")]
+    full[f"stripes {STRIPE_ACTIVE}"] = [
+        {k: r.get(k) for k in FULL_SIZE_KEYS}
+        for r in check_lsd_kernels(
+            *synthetic_stripes(STRIPE_ACTIVE, 0, dev), dev,
+            f"stripes of {STRIPE_ROWS} rows, {STRIPE_ACTIVE} active")]
     torch.cuda.synchronize()
     _, phases = images_to_lines(images, cams, gt, ref, dev)
     phases["render_s"] = render_s

@@ -42,7 +42,8 @@ LAUNCHES = {"match_pairs": 0, "score_matches": 0,
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 _SIGNATURES = {
-    # 13 inputs, P S knn, epipolar_overlap, 6 outputs, stream
+    # 13 inputs (the first the (V, S, 4) target table), P S knn,
+    # epipolar_overlap, 6 outputs, stream
     "l3d_match_pairs": [_P] * 13 + [_I] * 3 + [_F] + [_P] * 6 + [_P],
     # 10 inputs, V S M N knn, two_sig_a_sqr min_similarity, orientation,
     # 2 outputs, stream
@@ -50,8 +51,8 @@ _SIGNATURES = {
                           + [_P] * 2 + [_P]),
     # 4 inputs, V_tab S V M N knn, 2 outputs, stream
     "l3d_gather_target_estimates": [_P] * 4 + [_I] * 6 + [_P] * 2 + [_P],
-    # angle active, hp wp th tw, tol, labels unconverged, stream
-    "l3d_cc_tiles": [_P] * 2 + [_I] * 4 + [_F] + [_P] * 2 + [_P],
+    # angle active, hp wp th tw ph pw, tol, labels unconverged, stream
+    "l3d_cc_tiles": [_P] * 2 + [_I] * 6 + [_F] + [_P] * 2 + [_P],
     # lab T, total, out, stream
     "l3d_apply_merge_dense": [_P] * 2 + [_L] + [_P] + [_P],
     # src idx, n, out, stream

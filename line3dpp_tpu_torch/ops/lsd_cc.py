@@ -9,7 +9,8 @@ components are found in two levels:
 1. :func:`cc_tiles` labels each tile of the padded grid on its own: the
    label of a pixel is the padded-grid flat index of the smallest pixel of
    its component within the tile, ``INVALID`` for inactive pixels.  CUDA
-   tensors go through kernel K4 (``csrc/lsd_cc.cu``, a union-find), CPU
+   tensors go through kernel K4 (``csrc/lsd_cc.cu``, a union-find in
+   shared memory per patch of a tile, :func:`cc_patch`), CPU
    tensors through :func:`cc_tiles_plain` (min-label propagation with
    pointer jumping).  The labels depend on the tile-local graph alone, so
    both give the same labels bit for bit.
@@ -36,6 +37,9 @@ BIG_ANGLE = 100.0
 # become inside its float32 expressions
 TWO_PI = float(np.float32(2.0 * math.pi))
 PI = float(np.float32(math.pi))
+
+# kernel K4's patch: at most PATCH_H rows of PATCH_W pixels (cc_patch)
+PATCH_H, PATCH_W = 32, 128
 
 NEIGHBORS = ((0, 1), (0, -1), (1, 0), (-1, 0),
              (1, 1), (1, -1), (-1, 1), (-1, -1))
@@ -112,20 +116,37 @@ def cc_tiles_plain(angle: torch.Tensor, active: torch.Tensor, tol: float,
     return lab, torch.zeros((1, 1), dtype=torch.int32, device=dev)
 
 
+def cc_patch(tile: tuple) -> tuple[int, int]:
+    """The (ph, pw) patch that one block of kernel K4 labels in shared
+    memory: ``(min(th, 32), 128)``.  It divides every tile that
+    ``ops/lsd.py:_tile_for`` returns (heights 8-256 in powers of two,
+    widths 128-1024), so a patch lies inside one tile."""
+    th, tw = tile
+    ph, pw = min(th, PATCH_H), PATCH_W
+    if th % ph or tw % pw:
+        raise ValueError(f"tile {th}x{tw} is not a multiple of kernel K4's "
+                         f"patch {ph}x{pw}")
+    return ph, pw
+
+
 def cc_tiles_cuda(angle: torch.Tensor, active: torch.Tensor, tol: float,
                   tile: tuple) -> tuple[torch.Tensor, torch.Tensor]:
     """Kernel K4 on CUDA tensors: float32 ``angle`` and bool ``active`` of
-    one padded (hp, wp) grid."""
+    one padded (hp, wp) grid, starting on 16 bytes (the kernel's loads)."""
     _check_grid(angle, active, tile)
     hp, wp = angle.shape
     dev = angle.device
     kernels.check("angle", angle, torch.float32, (hp, wp), dev)
     kernels.check("active", active, torch.bool, (hp, wp), dev)
+    ph, pw = cc_patch(tile)
+    if angle.data_ptr() % 16 or active.data_ptr() % 16:
+        raise ValueError("angle, active: kernel K4 reads them with 16-byte "
+                         "loads")
     labels = torch.empty((hp, wp), dtype=torch.int32, device=dev)
     unconverged = torch.empty((1, 1), dtype=torch.int32, device=dev)
     p = kernels.ptr
     kernels.launch("l3d_cc_tiles", p(angle), p(active), hp, wp, tile[0],
-                   tile[1], ctypes.c_float(float(np.float32(tol))),
+                   tile[1], ph, pw, ctypes.c_float(float(np.float32(tol))),
                    p(labels), p(unconverged), kernels.stream(dev))
     kernels.LAUNCHES["cc_tiles"] += 1
     return labels, unconverged

@@ -28,6 +28,13 @@ from . import kernels
 
 EPS = 1e-12
 KNN_MAX = 16          # largest k kernel K1 takes (csrc/matching.cu KMAX)
+# kernel K1's pre-test (csrc/matching.cu pretest_keeps): the relative error
+# bound of its approximate quotients against the exact ones, and the margin
+# it widens them by
+PRETEST_REL_ERR = 2.0**-21
+PRETEST_MARGIN = 2.0**-12
+PRETEST_TINY = 2.0**-100
+PRETEST_SHRINK = 1.0 - 2.0**-20
 
 
 class PairMatches(NamedTuple):
@@ -48,6 +55,8 @@ class PairTables(NamedTuple):
 
     segments: torch.Tensor    # (V, S, 4) f32
     mask: torch.Tensor        # (V, S) bool
+    tq: torch.Tensor          # (V, S, 4) f32 target fields x1 y1 x2-x1 y2-y1,
+    #                           zeros where masked (K1's reject path)
     r1: torch.Tensor          # (V, S, 3) endpoint-1 rays
     r2: torch.Tensor          # (V, S, 3) endpoint-2 rays
     n: torch.Tensor           # (V, S, 3) segment plane normals
@@ -82,14 +91,35 @@ def pair_tables(segments, seg_mask, RtKinv, C, src_idx, tgt_idx, F,
     e2 = epi(xs[..., 2], xs[..., 3])
     num_src = geo.dot3(n[tgt], (C[tgt] - C[src])[:, None, :])
     num_tgt = geo.dot3(n[src], (C[src] - C[tgt])[:, None, :])
+    tq = torch.where(seg_mask[..., None], torch.cat([segments[..., 0:2], d],
+                                                    -1), 0.0)
     return PairTables(
         segments=segments.contiguous(), mask=seg_mask.contiguous(),
+        tq=tq.contiguous(),
         r1=r1.contiguous(), r2=r2.contiguous(), n=n.contiguous(),
         seglen=seglen.contiguous(), e1=e1.contiguous(), e2=e2.contiguous(),
         num_src=num_src.contiguous(), num_tgt=num_tgt.contiguous(),
         src_idx=src_idx.to(torch.int32).contiguous(),
         tgt_idx=tgt_idx.to(torch.int32).contiguous(),
         pair_valid=pair_valid.contiguous())
+
+
+def pretest_keeps_plain(u1: torch.Tensor, u2: torch.Tensor,
+                        cut) -> torch.Tensor:
+    """Kernel K1's pre-test in float32 torch, the same operations in the
+    same order: False only where the exact test must reject a candidate
+    whose intersection parameters are t1, t2 with ``|t - u| <=
+    PRETEST_REL_ERR * |u|`` and whose overlap must beat ``cut >= 0``."""
+    f32 = torch.float32
+    mu, tiny = (torch.tensor(v, dtype=f32) for v in (PRETEST_MARGIN,
+                                                       PRETEST_TINY))
+    M = mu * (u1.abs() + u2.abs()) + tiny
+    lo, hi = torch.minimum(u1, u2), torch.maximum(u1, u2)
+    inner_ub = (hi + M).clamp_max(1.0) - (lo - M).clamp_min(0.0)
+    outer_lb = (hi - M).clamp_min(1.0) - (lo + M).clamp_max(0.0)
+    cut = torch.as_tensor(cut, dtype=f32)
+    thresh = cut * outer_lb * torch.tensor(PRETEST_SHRINK, dtype=f32) - tiny
+    return ~((inner_ub <= thresh) & (M <= torch.finfo(f32).max))
 
 
 def _safe(x: torch.Tensor) -> torch.Tensor:
@@ -195,7 +225,7 @@ def match_pairs_cuda(t: PairTables, epipolar_overlap: float,
         raise ValueError(f"kernel K1 takes 1 <= knn <= {KNN_MAX}, got {knn}")
     f32 = torch.float32
     for name, x, dtype, shape in (
-            ("segments", t.segments, f32, (V, S, 4)),
+            ("tq", t.tq, f32, (V, S, 4)),
             ("mask", t.mask, torch.bool, (V, S)),
             ("r1", t.r1, f32, (V, S, 3)), ("r2", t.r2, f32, (V, S, 3)),
             ("n", t.n, f32, (V, S, 3)), ("seglen", t.seglen, f32, (V, S)),
@@ -206,12 +236,14 @@ def match_pairs_cuda(t: PairTables, epipolar_overlap: float,
             ("tgt_idx", t.tgt_idx, torch.int32, (P,)),
             ("pair_valid", t.pair_valid, torch.bool, (P,))):
         kernels.check(name, x, dtype, shape, dev)
+    if t.tq.data_ptr() % 16:
+        raise ValueError("tq: kernel K1 reads it as 16-byte float4s")
     idx = torch.empty((P, S, knn), dtype=torch.int32, device=dev)
     ov, dp1, dp2, dq1, dq2 = (torch.empty((P, S, knn), dtype=f32, device=dev)
                               for _ in range(5))
     p = kernels.ptr
     kernels.launch(
-        "l3d_match_pairs", p(t.segments), p(t.mask), p(t.r1), p(t.r2),
+        "l3d_match_pairs", p(t.tq), p(t.mask), p(t.r1), p(t.r2),
         p(t.n), p(t.seglen), p(t.e1), p(t.e2), p(t.num_src), p(t.num_tgt),
         p(t.src_idx), p(t.tgt_idx), p(t.pair_valid), P, S, knn,
         float(epipolar_overlap), p(idx), p(ov), p(dp1), p(dp2), p(dq1),

@@ -53,6 +53,90 @@ def test_k1_equals_plain_bit_for_bit(cuda, knn):
         assert torch.equal(getattr(got, name), getattr(want, name)), name
 
 
+def _crafted_tables(dev, S=1100):
+    """Synthetic tables whose target view holds exact duplicates at the
+    chunk borders (511/512 and 1023/1024 of K1's 512-target chunks), a
+    fully masked source view, an invalid pair, and a crafted pair p0 whose
+    first sources cut two unit-length targets exactly at chosen t1, t2 with
+    every depth sign positive: overlaps exactly at and one float above the
+    cut, outer_px exactly 1 and one float below, inner exactly -EPS."""
+    inp = synthetic_step_inputs(seed=11, V=6, S=S, N=4, n_lines=900)
+    segs, mask = inp["segments"], inp["seg_mask"]
+    segs[:, 900:S] = segs[:, 0:S - 900]              # every border twice
+    mask[:, 900:S] = mask[:, 0:S - 900]
+    for a, b in ((511, 512), (1023, 1024), (510, 513)):
+        segs[:, b] = segs[:, a]
+        mask[:, b] = mask[:, a]
+    inp["pair_valid"][4, 2] = False
+    mask[5] = False                                  # all sources masked
+    p0 = 0
+    tgt = int(inp["neighbor_ids"][0, 0])
+    assert tgt != 5 and mask[0, :12].all()
+    c0, c1 = 600, 601
+    segs[tgt, c0] = (0.0, 0.0, 1.0, 0.0)             # length 1 exactly
+    segs[tgt, c1] = (0.0, 0.0, 2.0, 0.0)
+    mask[tgt, c0] = mask[tgt, c1] = True
+    t = _tables(inp, dev)
+    t = matching.PairTables(*(x.clone() for x in t))
+    f = lambda v: float(np.float32(v))
+    up = lambda v: float(np.nextafter(np.float32(v), np.float32(2)))
+    down = lambda v: float(np.nextafter(np.float32(v), np.float32(-2)))
+    eps = f(1e-12)
+    # (t1, t2) for sources 0.. of view 0 against the vertical line x = t
+    # of the target view: with c0 = (0, 0)-(1, 0), t is the parameter
+    cuts = [(0.0, 0.25), (0.0, up(0.25)), (0.0, 1.0), (-eps, 0.5),
+            (-1.0, -eps), (-1.0, down(-eps)), (0.75, up(1.0)),
+            (down(0.0), 0.25), (1.0, up(1.0)), (0.0, 1.0), (0.25, 1.0),
+            (f(1e-40), 0.5)]
+    z = torch.tensor([0.0, 0.0, 1.0], device=dev)
+    for s, (t1, t2) in enumerate(cuts):
+        t.e1[p0, s] = torch.tensor([1.0, 0.0, -t1], device=dev)
+        t.e2[p0, s] = torch.tensor([1.0, 0.0, -t2], device=dev)
+        for tab in (t.r1, t.r2, t.n):
+            tab[0, s] = z
+        t.num_tgt[p0, s] = 1.0
+    for c in (c0, c1):
+        for tab in (t.r1, t.r2, t.n):
+            tab[tgt, c] = z
+        t.num_src[p0, c] = 1.0
+    # outer_px = outer * seglen: exactly 1 for c0, one float below for c1
+    t.seglen[tgt, c0] = 1.0
+    t.seglen[tgt, c1] = down(1.0)
+    return t, len(cuts), (c0, c1)
+
+
+@pytest.mark.parametrize("knn", [1, 10, 16])
+def test_k1_equals_plain_at_the_edges(cuda, knn):
+    """Ties across chunk borders, overlaps and outer_px exactly at their
+    thresholds, inner at -EPS, a masked view and an invalid pair: the
+    pre-test must keep every candidate the exact test accepts, so the
+    kernel equals the plain version bit for bit."""
+    t, _, (c0, c1) = _crafted_tables(cuda)
+    got = matching.match_pairs_cuda(t, 0.25, knn)
+    want = matching.match_pairs_plain(t, 0.25, knn, chunk=4)
+    for name in got._fields:
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+    assert not want.valid[4 * 4 + 2].any() and not want.valid[20:].any()
+    # the crafted candidates, from the plain version: overlap exactly 0.25
+    # is rejected, one float above kept; outer_px 1 kept, below rejected
+    sel = lambda s: {int(i) for i, v in zip(want.tgt_seg[0, s],
+                                            want.valid[0, s]) if v}
+    if knn >= 2:
+        assert c0 not in sel(0) and c0 in sel(1) and c0 in sel(2)
+        assert c1 not in sel(2)
+    # duplicates: where both copies are selected, the lower index first
+    tg, ok = want.tgt_seg, want.valid
+    for a, b in ((511, 512), (1023, 1024)):
+        first = (tg == a) & ok
+        pos_a = torch.where(first, torch.arange(knn, device=cuda), knn)
+        pos_b = torch.where((tg == b) & ok, torch.arange(knn, device=cuda),
+                            knn)
+        both = (pos_a.min(-1).values < knn) & (pos_b.min(-1).values < knn)
+        assert bool((pos_a.min(-1).values[both]
+                     < pos_b.min(-1).values[both]).all())
+    assert int(want.valid.sum()) > 1000
+
+
 def test_k2_equals_plain(cuda):
     """Only acosf/expf may round differently from torch's: 1e-5."""
     inp = synthetic_step_inputs(seed=2, V=6, S=300, N=4, n_lines=250)

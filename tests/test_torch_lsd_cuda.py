@@ -64,6 +64,120 @@ def test_k4_equals_plain_bit_for_bit(cuda, shape, tile, frac):
     assert int(unconv) == 0
 
 
+@pytest.mark.parametrize("shape,tile", [
+    ((16, 256), (8, 128)), ((32, 512), (16, 256)), ((256, 1024), (128, 512)),
+    ((512, 512), (256, 256)), ((512, 2048), (256, 1024)),
+    ((256, 256), (128, 128))], ids=lambda v: "x".join(map(str, v)))
+def test_k4_on_every_tile_family(cuda, shape, tile):
+    """Every tile shape the detector picks (``lsd._tile_for``), 2 x 2 tiles,
+    at a real photo's density with angles that chain across patches."""
+    rng = np.random.default_rng(sum(shape) + sum(tile))
+    coarse = rng.uniform(-np.pi, np.pi, (shape[0] // 4 + 1, shape[1] // 4 + 1))
+    angle = (np.repeat(np.repeat(coarse, 4, 0), 4, 1)[:shape[0], :shape[1]]
+             + rng.normal(0, 0.1, shape)).astype(np.float32)
+    active = rng.uniform(size=shape) < 0.55
+    _k4_equals_plain(cuda, angle, active, tile, lsd.PREC)
+
+
+def _k4_equals_plain(dev, angle, active, tile, tol):
+    a = torch.from_numpy(np.ascontiguousarray(angle)).to(dev)
+    m = torch.from_numpy(np.ascontiguousarray(active)).to(dev)
+    before = kernels.LAUNCHES["cc_tiles"]
+    got, unconv = lsd_cc.cc_tiles(a, m, tol, tile)
+    assert kernels.LAUNCHES["cc_tiles"] == before + 1
+    want, _ = lsd_cc.cc_tiles_plain(a, m, tol, tile)
+    assert torch.equal(got, want)
+    assert int(unconv) == 0
+    return want
+
+
+def _snake(hp, wp, tw):
+    """A one-pixel path along every other row, turning at alternate ends of
+    each tile column: one component per tile that crosses every patch of
+    the tile."""
+    act = np.zeros((hp, wp), bool)
+    act[::2] = True
+    for y in range(1, hp, 2):
+        end = tw - 1 if (y // 2) % 2 == 0 else 0
+        act[y, end::tw] = True
+    return act
+
+
+def _spiral(hp, wp):
+    act = np.zeros((hp, wp), bool)
+    y0, x0, y1, x1 = 0, 0, hp - 1, wp - 1
+    while y0 <= y1 and x0 <= x1:
+        act[y0, x0:x1 + 1] = True
+        act[y0:y1 + 1, x1] = True
+        if y1 > y0 + 1:
+            act[y1, x0:x1 + 1] = True
+        if x1 > x0 + 1:
+            act[y0 + 2:y1 + 1, x0] = True
+        if x0 + 2 <= x1:
+            act[y0 + 2, x0:x0 + 3] = True
+        y0, x0, y1, x1 = y0 + 2, x0 + 2, y1 - 2, x1 - 2
+    return act
+
+
+def _patch_corners(hp, wp, th, tw):
+    """Single pixels at every patch corner, and diagonal pairs across the
+    corners (up-left and up-right links that leave the patch)."""
+    ph, pw = lsd_cc.cc_patch((th, tw))
+    act = np.zeros((hp, wp), bool)
+    for y0 in range(0, hp, ph):
+        for x0 in range(0, wp, pw):
+            act[y0, x0] = act[y0 + ph - 1, x0 + pw - 1] = True
+            act[y0 + ph - 1, x0] = act[y0, x0 + pw - 1] = True
+    for y0 in range(ph, hp, ph):
+        for x0 in range(pw, wp, pw):
+            act[y0 - 1, x0 - 1] = act[y0, x0] = True
+            act[y0 - 1, x0 + 1] = act[y0, x0 + 2] = False
+    return act
+
+
+@pytest.mark.parametrize("case", ["snake", "spiral", "spiral_cut",
+                                  "checkerboard",
+                                  "wrap", "all", "none", "corners"])
+def test_k4_on_adversarial_grids(cuda, case):
+    """Components that cross many patch borders and stop at tile borders,
+    diagonal-only links, angles at +-pi (angle_diff wraps), everything and
+    nothing active, single pixels at the patch corners."""
+    hp, wp, tile = 256, 1024, (128, 512)
+    yy, xx = np.mgrid[0:hp, 0:wp]
+    angle = np.full((hp, wp), 0.5, np.float32)
+    if case == "snake":
+        active = _snake(hp, wp, tile[1])
+    elif case == "spiral":
+        active = _spiral(hp, wp)
+        tile = (256, 1024)
+    elif case == "spiral_cut":              # the same, cut by tile borders
+        active = _spiral(hp, wp)
+    elif case == "checkerboard":
+        active = (yy + xx) % 2 == 0
+        angle = (0.2 * ((yy // 3) % 2)).astype(np.float32)
+    elif case == "wrap":
+        active = np.ones((hp, wp), bool)
+        s = np.where((yy + 2 * xx) % 3 == 0, 1.0, -1.0)
+        angle = (s * (np.float32(np.pi) - 0.05)).astype(np.float32)
+        angle[100:140, :] = 0.0             # a band that links to nothing
+    elif case == "all":
+        active = np.ones((hp, wp), bool)
+    elif case == "none":
+        active = np.zeros((hp, wp), bool)
+    else:
+        active = _patch_corners(hp, wp, *tile)
+    want = _k4_equals_plain(cuda, angle, active, tile, lsd.PREC)
+    labels = want[torch.from_numpy(active).to(cuda)]
+    n_comp = int(torch.unique(labels).numel())
+    tiles = (hp // tile[0]) * (wp // tile[1])
+    if case in ("snake", "all"):
+        assert n_comp == tiles
+    if case == "spiral":
+        assert n_comp == 1
+    if case == "none":
+        assert n_comp == 0
+
+
 def test_k5_k6_equal_plain(cuda):
     """The label gathers on a detection-sized grid: exact."""
     rng = np.random.default_rng(8)
