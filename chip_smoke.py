@@ -7,12 +7,14 @@
    count); exits non-zero when no CUDA device is present.
 2. Builds the CUDA kernels from ``line3dpp_tpu_torch/csrc`` (timed),
    prints ptxas' registers, shared memory and spills of every kernel, and
-   counts K1's reject path in SASS instructions per candidate
-   (``cuobjdump -sass``, where the toolkit has it).
+   counts the reject paths of K1 (SASS instructions per candidate) and K2
+   (per slot pair) with ``cuobjdump -sass``, where the toolkit has it.
 3. Cached segments to lines: loads the 26 bundled views and holds kernels
    K1-K3 against their plain PyTorch versions on the card at that path's
    shapes (26 views, S = 3000, N = 16, k = 10, M = 160), timing both with
-   CUDA events; then drives the path through the user entry points
+   CUDA events, and counts K2's pre-test survivors for its bound (valid
+   pairs x the pre-test's operations + survivors x the exact path's);
+   then drives the path through the user entry points
    (``Line3D``, ``add_view``, ``match_images``, ``reconstruct_3d_lines``,
    ``save_txt/stl/obj``) with every launch counter reset just before and
    read just after; requires K1-K3 to have launched and the result to
@@ -83,6 +85,7 @@ LANES_PER_SM = 128          # 4 warp schedulers x 32 lanes issue per clock
 # f32 operations per unit of work, counted from the kernels' source
 K1_OPS_PER_CANDIDATE = 36   # 4 epipolar dots, 2 divisions, overlap (matching.cu)
 K2_OPS_PER_PAIR = 40        # dot, acos, 3 exp, 2 divisions, min/max (scoring.cu)
+K2_PRETEST_OPS_PER_PAIR = 12  # dot 5, 2 differences, 2 squares, 3 comparisons
 K4_OPS_PER_ACTIVE = 16      # 4 backward links x angle_diff (lsd_cc.cu)
 K7_OPS_PER_PIXEL = 13       # 6 products, 7 sums (lsd_fit.cu)
 K9_OPS_PER_PIXEL = 50       # cosf, sinf (~20 each), projection, 3 tests
@@ -278,7 +281,80 @@ def check_k1(t, eo, knn):
         else "bytes", library_ms=None), candidates)
 
 
-def check_k2(args, kw):
+def pretest_counts(r1, r2, rmid, C, k_reg, tgt_C, tgt_k, d_p1, d_p2, valid,
+                   *, knn: int, two_sig_a_sqr: float,
+                   min_similarity: float = 0.5,
+                   check_orientation: bool = True,
+                   chunk: int = 256) -> dict:
+    """What kernel K2's pre-test (``scoring.pretest_keeps_plain``) leaves
+    on a match table, counted in torch: the valid pairs (valid slots after
+    the orientation gate, other groups), those its angle test and its depth
+    test keep, those both keep (the survivors); the warp steps of the
+    kernel's layout (32 own slots, one partner) and of the other one (one
+    own slot, the partners of a group) with a surviving lane; and the
+    segments with no valid slot."""
+    import torch
+    from line3dpp_tpu_torch.ops import scoring
+
+    V, S, M = d_p1.shape
+    N = tgt_C.shape[1]
+    VS = V * S
+    dev = d_p1.device
+    flat = lambda x: x.reshape(VS, *x.shape[2:])
+    view_of = torch.arange(V, device=dev).repeat_interleave(S)
+    group = torch.arange(M, device=dev) // knn
+    other = group[:, None] != group[None, :]                      # (M, M)
+    P = -(-M // 32)
+    keeps = lambda *x: scoring.pretest_keeps_plain(*x, two_sig_a_sqr,
+                                                   min_similarity)
+    n = dict.fromkeys((
+        "pairs", "angle_keeps", "depth_keeps", "survivors", "warp_steps",
+        "warp_steps_survivor", "partner_steps", "partner_steps_survivor",
+        "segments", "segments_no_valid"), 0)
+    args = (flat(r1), flat(r2), flat(rmid), flat(d_p1), flat(d_p2),
+            flat(valid))
+    for lo in range(0, VS, chunk):
+        sl = slice(lo, min(lo + chunk, VS))
+        vv = view_of[sl]
+        a1, a2, am, d1, d2, mv = (a[sl] for a in args)
+        dirc, ok, den1, den2 = scoring._slot_geometry(
+            a1, a2, am, d1, d2, mv, C[vv], k_reg[vv], tgt_C[vv], tgt_k[vv],
+            knn=knn, check_orientation=check_orientation)
+        pair = ok[:, :, None] & ok[:, None, :] & other
+        dot = (dirc[0][:, :, None] * dirc[0][:, None, :]
+               + dirc[1][:, :, None] * dirc[1][:, None, :]
+               + dirc[2][:, :, None] * dirc[2][:, None, :])
+        e1 = d1[:, :, None] - d1[:, None, :]
+        e2 = d2[:, :, None] - d2[:, None, :]
+        # each test alone: a zero depth difference or a unit dot passes
+        # the other one
+        zero, one = torch.zeros_like(e1), torch.ones_like(dot)
+        keep = pair & keeps(dot, e1, e2, den1, den2)
+        n["pairs"] += int(pair.sum())
+        n["angle_keeps"] += int((pair & keeps(dot, zero, zero, den1,
+                                              den2)).sum())
+        n["depth_keeps"] += int((pair & keeps(one, e1, e2, den1,
+                                              den2)).sum())
+        n["survivors"] += int(keep.sum())
+        # the kernel's lanes: own slot m is lane rank % 32 of pass rank // 32
+        lane_pass = torch.where(ok, torch.cumsum(ok, 1) - 1, -1) // 32
+        onehot = lane_pass[:, :, None] == torch.arange(P, device=dev)
+        n["warp_steps"] += int((pair[:, :, :, None]
+                                & onehot[:, :, None, :]).any(1).sum())
+        n["warp_steps_survivor"] += int((keep[:, :, :, None]
+                                         & onehot[:, :, None, :]).any(1).sum())
+        by_group = lambda x: x.reshape(*x.shape[:2], N, knn).any(-1).sum()
+        n["partner_steps"] += int(by_group(pair))
+        n["partner_steps_survivor"] += int(by_group(keep))
+        n["segments"] += ok.shape[0]
+        n["segments_no_valid"] += int((~mv.any(1)).sum())
+    return n
+
+
+def check_k2(args, kw, sass=None, clock_mhz=None):
+    """K2 against its plain version, with the counts of its pre-test
+    (:func:`pretest_counts`) that its bound rests on: every valid pair
+    needs the pre-test's operations, the survivors the exact path's."""
     import torch
     from line3dpp_tpu_torch.ops import scoring
 
@@ -300,27 +376,41 @@ def check_k2(args, kw):
     check(ok_bad == 0 and n_far <= 1e-5 * n_slots,
           "K2 disagrees with its plain version")
 
-    ok = got.valid
-    V, S, M = ok.shape
-    N = args[5].shape[1]
-    per_group = ok.reshape(V, S, N, M // N).sum(-1).long()
-    pairs = int((per_group * (per_group.sum(-1, keepdim=True)
-                              - per_group)).sum())
-    ops = K2_OPS_PER_PAIR * pairs
+    n = pretest_counts(*args, chunk=512, **kw)
+    pairs, survivors = n["pairs"], n["survivors"]
+    print("K2 pre-test: " + json.dumps(n), flush=True)
+    ops = K2_PRETEST_OPS_PER_PAIR * pairs + K2_OPS_PER_PAIR * survivors
     moved = nbytes(*args) + nbytes(got.score3d, got.valid)
     k2 = lambda: scoring.score_matches_cuda(*args, **kw)
     ms = cuda_ms(k2, reps=5)
     plain_ms = cuda_ms(
         lambda: scoring.score_matches_plain(*args, chunk=2048, **kw), reps=1)
-    return got, (dict(
+    b_ms, by = bound(ops, moved)
+    row = dict(
         name="K2 score_matches", route="cuda",
         source="line3dpp_tpu_torch/csrc/scoring.cu",
         replaces="line3dpp_tpu/ops/scoring_pallas.py:231",
         max_abs_err=err, ms=ms, device_ms=device_ms(k2, 5),
-        plain_ms=plain_ms,
-        bound_ms=1e3 * max(ops / PEAK_F32, moved / PEAK_BYTES),
-        bound_by="operations" if ops / PEAK_F32 > moved / PEAK_BYTES
-        else "bytes", library_ms=None), pairs)
+        plain_ms=plain_ms, bound_ms=b_ms, bound_by=by, library_ms=None,
+        bound_ms_every_pair_exact=bound(K2_OPS_PER_PAIR * pairs, moved)[0],
+        pretest_survivor_rate=survivors / max(pairs, 1),
+        warp_step_survivor_rate=(n["warp_steps_survivor"]
+                                 / max(n["warp_steps"], 1)))
+    if sass is not None and clock_mhz:
+        # every lane of the card issuing one reject-path instruction a clock
+        row.update(sass_per_pair=sass["per_pair"], issue_ceiling_ms=(
+            1e3 * sass["per_pair"] * pairs
+            / (H100_SMS * LANES_PER_SM * clock_mhz * 1e6)))
+        print(f"K2 issue-rate ceiling: {sass['per_pair']:.2f} SASS "
+              f"instructions x {pairs} pairs over {H100_SMS} SMs x "
+              f"{LANES_PER_SM} lanes at {clock_mhz:.0f} MHz = "
+              f"{row['issue_ceiling_ms']:.3f} ms", flush=True)
+    print(f"K2 bound: {pairs} pairs x {K2_PRETEST_OPS_PER_PAIR} + "
+          f"{survivors} survivors x {K2_OPS_PER_PAIR} operations: "
+          f"{b_ms:.4f} ms ({by}); every pair through the exact path "
+          f"({K2_OPS_PER_PAIR} x {pairs}): "
+          f"{row['bound_ms_every_pair_exact']:.4f} ms", flush=True)
+    return got, (row, pairs)
 
 
 def check_k3(fm, nbr, tgt_seg, knn):
@@ -367,12 +457,13 @@ def check_k3(fm, nbr, tgt_seg, knn):
         library_device_ms=device_ms(library))
 
 
-def kernel_checks(inp, cfg, dev, k1_sass=None, clock_mhz=None):
+def kernel_checks(inp, cfg, dev, k1_sass=None, k2_sass=None,
+                  clock_mhz=None):
     """Each kernel against its plain version at the main path's shapes;
     K2 and K3 take the inputs the previous stages give them."""
     import torch
     from line3dpp_tpu_torch.models import step
-    from line3dpp_tpu_torch.ops import affinity, geometry as geo, matching
+    from line3dpp_tpu_torch.ops import affinity, matching
 
     d = {n: torch.from_numpy(inp[n]).to(dev) for n in (
         "segments", "seg_mask", "RtKinv", "C", "k_reg", "neighbor_ids", "F",
@@ -401,29 +492,31 @@ def kernel_checks(inp, cfg, dev, k1_sass=None, clock_mhz=None):
         k1.update(sass_per_candidate=k1_sass["per_candidate"],
                   issue_ceiling_ms=ceiling)
 
-    d_p1 = step.regroup(pm.d_p1, V, N).contiguous()
-    d_p2 = step.regroup(pm.d_p2, V, N).contiguous()
-    t_valid = step.regroup(pm.valid, V, N).contiguous()
-    tgt_seg = step.regroup(pm.tgt_seg, V, N).contiguous()
-    r1, r2 = geo.segment_rays(d["RtKinv"][:, None], d["segments"])
-    mid = 0.5 * (d["segments"][..., 0:2] + d["segments"][..., 2:4])
-    rmid = geo.rays_from_pixels(d["RtKinv"][:, None], mid)
-    nbr = d["neighbor_ids"].long()
-    args = (r1.contiguous(), r2.contiguous(), rmid.contiguous(), d["C"],
-            d["k_reg"], d["C"][nbr].contiguous(), d["k_reg"][nbr].contiguous(),
-            d_p1, d_p2, t_valid)
-    kw = dict(knn=knn, two_sig_a_sqr=cfg.two_sig_a_sqr,
-              min_similarity=cfg.min_similarity_3d,
-              check_orientation=cfg.check_match_orientation)
-    scored, (k2, pairs) = check_k2(args, kw)
+    args, kw = scoring_inputs(d, pm, cfg, knn)
+    scored, (k2, pairs) = check_k2(args, kw, k2_sass, clock_mhz)
     print(f"K2 work: {pairs} valid slot pairs", flush=True)
 
+    r1, r2, _, _, _, _, _, d_p1, d_p2, _ = args
+    tgt_seg = step.regroup(pm.tgt_seg, V, N).contiguous()
     fm = affinity.filter_matches(r1, r2, d["C"], scored.score3d,
                                  scored.valid, d_p1, d_p2,
                                  cfg.min_best_score_3d,
                                  cfg.min_best_score_perc)
     k3 = check_k3(fm, d["neighbor_ids"], tgt_seg, knn)
     return [k1, k2, k3]
+
+
+def scoring_inputs(d, pm, cfg, knn):
+    """Kernel K2's arguments and options on the main path: the match table
+    of K1 (``pm``) regrouped by neighbour, the rays of the views ``d``."""
+    from line3dpp_tpu_torch.models import step
+
+    args = step.score_inputs(d["segments"], d["RtKinv"], d["C"], d["k_reg"],
+                             d["neighbor_ids"], pm)
+    kw = dict(knn=knn, two_sig_a_sqr=cfg.two_sig_a_sqr,
+              min_similarity=cfg.min_similarity_3d,
+              check_orientation=cfg.check_match_orientation)
+    return args, kw
 
 
 def bound(ops: float, moved: float) -> tuple[float, str]:
@@ -562,9 +655,7 @@ def k1_reject_path(sass: str, knn: int) -> dict | None:
     pre-tests as many targets as it has LDS.128 before the branch."""
     import re
 
-    funcs = sass.split("Function : ")
-    body = next((f for f in funcs[1:] if f"match_kernelILi{knn}E" in
-                 f.split("\n", 1)[0]), None)
+    body = sass_function(sass, f"match_kernelILi{knn}E")
     if body is None:
         return None
     ins = [(int(m.group(1), 16), m.group(2).strip()) for m in re.finditer(
@@ -593,27 +684,97 @@ def k1_reject_path(sass: str, knn: int) -> dict | None:
     return dict(group=group, per_candidate=step / group, step=step)
 
 
-def k1_sass_info(lib: str, knn: int) -> dict | None:
-    """K1's reject path in SASS instructions per candidate (printed), from
-    ``cuobjdump -sass`` of the kernel library where the toolkit has it."""
+def cuobjdump_sass(lib: str) -> str | None:
+    """``cuobjdump -sass`` of the kernel library, where the toolkit has
+    it."""
     tool = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     if not os.path.exists(tool):
-        print("K1 SASS: cuobjdump is absent from this toolkit; the reject "
-              "path is not counted", flush=True)
+        print("SASS: cuobjdump is absent from this toolkit; the reject "
+              "paths are not counted", flush=True)
         return None
     out = subprocess.run([tool, "-sass", lib], capture_output=True,
                          text=True, timeout=300)
-    info = k1_reject_path(out.stdout, knn) if out.returncode == 0 else None
-    if info is None:
+    if out.returncode != 0:
+        print(f"SASS: cuobjdump failed (rc {out.returncode})", flush=True)
+        return None
+    return out.stdout
+
+
+def k1_sass_info(sass: str | None, knn: int) -> dict | None:
+    """K1's reject path in SASS instructions per candidate (printed)."""
+    info = k1_reject_path(sass, knn) if sass else None
+    if sass and info is None:
         print(f"K1 SASS: match_kernel<{knn}>'s pre-test step was not found "
-              f"in cuobjdump's output (rc {out.returncode})", flush=True)
+              f"in cuobjdump's output", flush=True)
+    if info is None:
         return None
     print(f"K1 SASS, match_kernel<{knn}>: a step of {info['group']} "
           f"targets with no survivor "
           f"{info['step']}, so {info['per_candidate']:.2f} per candidate on "
           f"the reject path (K1_OPS_PER_CANDIDATE = {K1_OPS_PER_CANDIDATE} "
           f"stays the bound's yardstick)", flush=True)
+    return info
+
+
+def sass_function(sass: str, name: str) -> str | None:
+    """The body of the first kernel in ``sass`` whose mangled name holds
+    ``name``."""
+    return next((f for f in sass.split("Function : ")[1:]
+                 if name in f.split("\n", 1)[0]), None)
+
+
+def k2_reject_path(sass: str) -> dict | None:
+    """Instructions per pair of K2's reject path in ``score_kernel``, from
+    ``cuobjdump -sass``: its pre-test of 32 partners is unrolled and
+    branch-free, so it is the basic block without a MUFU (the exact path's
+    acosf and expf) that reads the most partners' float4s (LDS.128); per
+    pair, that block's instructions over its LDS.128."""
+    import re
+
+    body = sass_function(sass, "score_kernel")
+    if body is None:
+        return None
+    ins = [(int(m.group(1), 16), m.group(2).strip()) for m in re.finditer(
+        r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", body)]
+    targets = set()
+    for _, t in ins:
+        m = re.search(r"\bBRA\s+(?:!?U?P\d,\s*)?(0x[0-9a-f]+)", t)
+        if m:
+            targets.add(int(m.group(1), 16))
+    blocks, cur = [], []
+    for a, t in ins:
+        if a in targets and cur:
+            blocks.append(cur)
+            cur = []
+        cur.append(t)
+        if re.search(r"\b(BRA|EXIT|RET|CALL|BSYNC|WARPSYNC|BREAK)\b", t):
+            blocks.append(cur)
+            cur = []
+    blocks.append(cur)
+    best = None
+    for blk in blocks:
+        lds = sum("LDS.128" in t for t in blk)
+        if lds < 8 or any("MUFU" in t for t in blk):
+            continue
+        if best is None or lds > best["partners"]:
+            best = dict(partners=lds, step=len(blk), per_pair=len(blk) / lds)
+    return best
+
+
+def k2_sass_info(sass: str | None) -> dict | None:
+    """K2's reject path in SASS instructions per pair (printed)."""
+    info = k2_reject_path(sass) if sass else None
+    if sass and info is None:
+        print("K2 SASS: score_kernel's pre-test block was not found in "
+              "cuobjdump's output", flush=True)
+    if info is None:
+        return None
+    print(f"K2 SASS, score_kernel: the pre-test of "
+          f"{info['partners']} partners is {info['step']} instructions, so "
+          f"{info['per_pair']:.2f} per pair on the reject path "
+          f"(K2_PRETEST_OPS_PER_PAIR = {K2_PRETEST_OPS_PER_PAIR} stays the "
+          f"bound's yardstick)", flush=True)
     return info
 
 
@@ -704,12 +865,18 @@ def check_lsd_kernels(angle, active, idx, mag_c, ang_c, tile, dev,
         library=lambda: acc7.index_add_(0, slot_l, terms)))
 
     # the first fit's tables, and K11 on them: exact minima
+    # with the detector's run table, as _lsd_round calls it, and without
     tables, npix, _ = lsd._axis_tables(mom_p)
-    ext = lsd_fit.extents_cuda(slot, xs, ys, pix, tables, C)
+    starts = pl["starts"]
+    ext = lsd_fit.extents_cuda(slot, xs, ys, pix, tables, C, starts)
+    ext_built = lsd_fit.extents_cuda(slot, xs, ys, pix, tables, C)
     ext_p = lsd_fit.extents_plain(slot, xs, ys, pix, tables, C)
     torch.cuda.synchronize()
-    exact = torch.equal(ext, ext_p)
-    print(f"[{what}] K11 extents: bit-exact {exact}", flush=True)
+    exact = (torch.equal(ext.view(torch.int32), ext_p.view(torch.int32))
+             and torch.equal(ext_built.view(torch.int32),
+                             ext_p.view(torch.int32)))
+    print(f"[{what}] K11 extents: bit-exact {exact} (run table given and "
+          f"built)", flush=True)
     check(exact, "K11 is not bit-exact against its plain version")
     row = tables[slot.clamp(max=C - 1).long()]
     dxp, dyp = xs - row[:, 2], ys - row[:, 3]
@@ -721,10 +888,13 @@ def check_lsd_kernels(angle, active, idx, mag_c, ang_c, tile, dev,
     idx4 = slot_l[:, None].expand(-1, 4)
     rows.append(kernel_row(
         "K11 extents", "lsd_fit.cu", "line3dpp_tpu/ops/lsd_fit.py:530", 0.0,
-        lambda: lsd_fit.extents_cuda(slot, xs, ys, pix, tables, C),
+        lambda: lsd_fit.extents_cuda(slot, xs, ys, pix, tables, C, starts),
         cuda_ms(lambda: lsd_fit.extents_plain(slot, xs, ys, pix, tables, C),
                 5),
-        K11_OPS_PER_PIXEL * n_real, nbytes(slot, xs, ys, pix, tables, ext),
+        # the function's bytes: four pixel planes, each component's
+        # (cos, sin, cx, cy) of the table, the (C, 4) output; not the run
+        # table, which only this kernel's design needs
+        K11_OPS_PER_PIXEL * n_real, nbytes(slot, xs, ys, pix, ext) + 16 * C,
         library=lambda: acc11.scatter_reduce_(0, idx4, vals, "amin")))
 
     # the first refine step's gate, as _lsd_round builds it: K8 against its
@@ -1172,7 +1342,13 @@ def main() -> None:
           f"{native}", flush=True)
     for line in ptxas_report(build_log):
         print("  ptxas: " + line, flush=True)
-    k1_sass = k1_sass_info(lib, knn=10)
+    sass = cuobjdump_sass(lib)
+    k1_sass = k1_sass_info(sass, knn=10)
+    k2_sass = k2_sass_info(sass)
+    if opts.out and sass:
+        os.makedirs(opts.out, exist_ok=True)
+        with open(os.path.join(opts.out, "k2_sass.txt"), "w") as f:
+            f.write(sass_function(sass, "score_kernel") or "")
 
     # ---- each kernel against its plain version at main-path shapes
     views = load_views()
@@ -1181,7 +1357,8 @@ def main() -> None:
     for v in views:
         setup.add_view(v.cam_id, lt.Camera(v.K, v.R, v.t, v.width, v.height),
                        v.segments)
-    rows = kernel_checks(setup.step_inputs(), cfg, dev, k1_sass, clock_mhz)
+    rows = kernel_checks(setup.step_inputs(), cfg, dev, k1_sass, k2_sass,
+                         clock_mhz)
     del setup
     torch.cuda.synchronize()
 

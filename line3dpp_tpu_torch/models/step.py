@@ -57,6 +57,26 @@ def regroup(x: torch.Tensor, V: int, N: int) -> torch.Tensor:
     return x.reshape(V, N, S, k).permute(0, 2, 1, 3).reshape(V, S, N * k)
 
 
+def hypothesis_rays(segments: torch.Tensor, RtKinv: torch.Tensor):
+    """World rays (V, S, 3) through each segment's endpoints and midpoint."""
+    r1, r2 = geo.segment_rays(RtKinv[:, None], segments)
+    mid = 0.5 * (segments[..., 0:2] + segments[..., 2:4])
+    return r1, r2, geo.rays_from_pixels(RtKinv[:, None], mid)
+
+
+def score_inputs(segments, RtKinv, C, k_reg, neighbor_ids, pm) -> tuple:
+    """Kernel K2's positional arguments (``scoring.score_matches_cuda`` and
+    ``score_matches_plain``) as :func:`forward_step` gives them: the rays,
+    the cameras and their targets, and K1's match table ``pm`` regrouped
+    by neighbour, each contiguous."""
+    V, N = neighbor_ids.shape
+    nbr = neighbor_ids.long()
+    return (*(r.contiguous() for r in hypothesis_rays(segments, RtKinv)),
+            C, k_reg, C[nbr].contiguous(), k_reg[nbr].contiguous(),
+            *(regroup(x, V, N).contiguous()
+              for x in (pm.d_p1, pm.d_p2, pm.valid)))
+
+
 def forward_step(
     segments: torch.Tensor,      # (V, S, 4) f32 2D segments (dense, masked)
     seg_mask: torch.Tensor,      # (V, S) bool
@@ -89,9 +109,7 @@ def forward_step(
     d_p1 = regroup(pm.d_p1, V, N)
     d_p2 = regroup(pm.d_p2, V, N)
 
-    r1, r2 = geo.segment_rays(RtKinv[:, None], segments)
-    mid = 0.5 * (segments[..., 0:2] + segments[..., 2:4])
-    rmid = geo.rays_from_pixels(RtKinv[:, None], mid)
+    r1, r2, rmid = hypothesis_rays(segments, RtKinv)
 
     scored = scoring_ops.score_matches(
         r1, r2, rmid, C, k_reg, neighbor_ids, d_p1, d_p2, t_valid,

@@ -46,8 +46,8 @@ _SIGNATURES = {
     # epipolar_overlap, 6 outputs, stream
     "l3d_match_pairs": [_P] * 13 + [_I] * 3 + [_F] + [_P] * 6 + [_P],
     # 10 inputs, V S M N knn, two_sig_a_sqr min_similarity, orientation,
-    # 2 outputs, stream
-    "l3d_score_matches": ([_P] * 10 + [_I] * 5 + [_F] * 2 + [_I]
+    # the pre-test's cos_lo lp, 2 outputs, stream
+    "l3d_score_matches": ([_P] * 10 + [_I] * 5 + [_F] * 2 + [_I] + [_F] * 2
                           + [_P] * 2 + [_P]),
     # 4 inputs, V_tab S V M N knn, 2 outputs, stream
     "l3d_gather_target_estimates": [_P] * 4 + [_I] * 6 + [_P] * 2 + [_P],
@@ -66,8 +66,8 @@ _SIGNATURES = {
     "l3d_gate_pixels": [_P] * 6 + [_I] * 3 + [_F] + [_P] + [_P],
     # slot xs ys pix tables bands, n C B, scratch out, stream
     "l3d_band_counts": [_P] * 6 + [_I] * 3 + [_P] * 2 + [_P],
-    # slot xs ys pix tables, n C, out, stream
-    "l3d_extents": [_P] * 5 + [_I] * 2 + [_P] + [_P],
+    # slot xs ys pix tables starts, n C, out, stream
+    "l3d_extents": [_P] * 6 + [_I] * 2 + [_P] + [_P],
 }
 
 

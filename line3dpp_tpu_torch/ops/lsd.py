@@ -343,7 +343,8 @@ def _pixel_list(angle, active, idx, mag_c, ang_c, tol: float,
     (all active) sorted by component, with their component slots.
 
     Returns a dict: ``n`` pixels, ``C`` components (runs of >= 5 pixels),
-    per pixel in sorted order ``slot`` (int32, C for the dump), ``xs``,
+    ``starts`` (int32 (C,), each component's first sorted position), per
+    pixel in sorted order ``slot`` (int32, C for the dump), ``xs``,
     ``ys``, ``idx_s``, ``mag_s``, ``ang_s``, and the counts ``n_links``
     and ``unconverged_tiles`` of the components pass."""
     wp = angle.shape[1]
@@ -375,6 +376,9 @@ def _pixel_list(angle, active, idx, mag_c, ang_c, tol: float,
     C = int(new_run.sum())
     return dict(
         n=n, C=C,
+        # the run table of kernel K11: dlab never decreases and first
+        # reaches c at component c's head (one launch, no host sync)
+        starts=torch.searchsorted(dlab, pos[:C], out_int32=True),
         # component slot per pixel; pixels of short runs go to dump slot C
         slot=torch.where(big_run, dlab, C).to(torch.int32),
         xs=(idx_s % wp).to(torch.float32),
@@ -544,7 +548,8 @@ def _lsd_round(angle, active, idx, mag_c, ang_c, tol: float, consume: bool,
     def fit(mom, pix):
         tables, npix, var_w = _axis_tables(mom)
         return _rectangles(tables, npix,
-                           lsd_fit.extents(slot, xs, ys, pix, tables, C),
+                           lsd_fit.extents(slot, xs, ys, pix, tables, C,
+                                           pl["starts"]),
                            var_w)
 
     def refit(pix):

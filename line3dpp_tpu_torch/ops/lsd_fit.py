@@ -114,7 +114,37 @@ def band_counts_plain(slot, xs, ys, pix, tables, C: int,
     return acc[:C].to(torch.float32)
 
 
-def extents_plain(slot, xs, ys, pix, tables, C: int) -> torch.Tensor:
+def run_starts(slot: torch.Tensor, C: int) -> torch.Tensor:
+    """The run table of a slot list: int32 (C,), the first position of each
+    component's run.  A component with no pixel gets the next component's
+    start (``n`` after the last), so the table never decreases and run c
+    lies in ``[starts[c], starts[c + 1])`` (``starts[C]`` read as ``n``).
+    Built without a host sync."""
+    # the latest real component at or before each position never
+    # decreases, and first reaches c at component c's head, or at the next
+    # component's head when c has no pixel
+    latest = torch.where((slot >= 0) & (slot < C), slot, -1).cummax(0).values
+    return torch.searchsorted(
+        latest, torch.arange(C, dtype=latest.dtype, device=slot.device),
+        out_int32=True)
+
+
+def check_runs(slot: torch.Tensor, C: int) -> None:
+    """Raise ``ValueError`` unless each real component's pixels (slot in
+    ``[0, C)``) lie in one contiguous run, as kernel K11 needs; the
+    detector's pixel list is so by construction.  One host sync."""
+    head = (slot >= 0) & (slot < C)
+    head[1:] &= slot[1:] != slot[:-1]
+    runs = torch.bincount(slot[head].long(), minlength=C)
+    if bool((runs > 1).any()):
+        c = int(torch.nonzero(runs > 1)[0, 0])
+        raise ValueError(f"kernel K11 needs each component's pixels in one "
+                         f"run: component {c} has {int(runs[c])} runs")
+
+
+def extents_plain(slot, xs, ys, pix, tables, C: int,
+                  starts=None) -> torch.Tensor:
+    """``starts`` is the kernel's run table and plays no part here."""
     row, valid = _rows(slot, tables, C)
     ct, st, cx, cy = row[:, :4].unbind(1)
     dxp = xs - cx
@@ -206,13 +236,21 @@ def band_counts_cuda(slot, xs, ys, pix, tables, C: int,
     return out
 
 
-def extents_cuda(slot, xs, ys, pix, tables, C: int) -> torch.Tensor:
-    """Kernel K11."""
+def extents_cuda(slot, xs, ys, pix, tables, C: int,
+                 starts=None) -> torch.Tensor:
+    """Kernel K11 over the component runs: ``starts`` is their table
+    (:func:`run_starts`).  Each real component must be one contiguous run,
+    as in the detector's list; when ``starts`` is not given, the wrapper
+    checks that (:func:`check_runs`) and builds the table from ``slot``."""
     n, dev = _check_pixels(C, tables, slot=slot, xs=xs, ys=ys, pix=pix)
+    if starts is None:
+        check_runs(slot, C)
+        starts = run_starts(slot, C)
+    kernels.check("starts", starts, torch.int32, (C,), dev)
     out = torch.empty((C, 4), dtype=torch.float32, device=dev)
     p = kernels.ptr
     kernels.launch("l3d_extents", p(slot), p(xs), p(ys), p(pix), p(tables),
-                   n, C, p(out), kernels.stream(dev))
+                   p(starts), n, C, p(out), kernels.stream(dev))
     kernels.LAUNCHES["extents"] += 1
     return out
 
@@ -248,9 +286,12 @@ def gate_moments(slot, xs, ys, ang, mag, pix, tables, dump_keep: bool,
     return newpix, moments_plain(slot, xs, ys, mag, newpix, C)
 
 
-def extents(slot, xs, ys, pix, tables, C: int) -> torch.Tensor:
+def extents(slot, xs, ys, pix, tables, C: int,
+            starts=None) -> torch.Tensor:
+    """``starts``: the run table (:func:`run_starts`), which the kernel's
+    wrapper checks and builds from ``slot`` when it is not given."""
     if slot.is_cuda:
-        return extents_cuda(slot, xs, ys, pix, tables, C)
+        return extents_cuda(slot, xs, ys, pix, tables, C, starts)
     return extents_plain(slot, xs, ys, pix, tables, C)
 
 

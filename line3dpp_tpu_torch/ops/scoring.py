@@ -19,8 +19,10 @@ with ``arccos``).
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from . import kernels
@@ -29,6 +31,17 @@ from .geometry import DEG
 EPS = 1e-12
 PI_1_32 = 0.098174771    # reference: commons.h:99
 PI_31_32 = 3.043417886   # reference: commons.h:100
+# kernel K2's pre-test margins (csrc/scoring.cu): expf's 2 ulp, the depth
+# threshold's widening, the angle's relative and absolute widening
+# (degrees), the dot products' rounding allowance, and the least
+# min_similarity for which the test is on
+PRETEST_EXP_REL = 2.0**-22
+PRETEST_DEPTH_ABS = 2.0**-20
+PRETEST_DEPTH_REL = 2.0**-20
+PRETEST_ANGLE_REL = 2.0**-12
+PRETEST_ANGLE_ABS = 2.0**-10
+PRETEST_DOT_ABS = 2.0**-18
+PRETEST_MIN_SIM = 2.0**-100
 
 
 class ScoredMatches(NamedTuple):
@@ -36,14 +49,11 @@ class ScoredMatches(NamedTuple):
     valid: torch.Tensor     # (V, S, M) bool (post orientation filter)
 
 
-def _score_chunk(r1, r2, rmid, d1, d2, mvalid, Cv, kv, tC, tk, *, knn: int,
-                 two_sig_a_sqr: float, min_similarity: float,
-                 check_orientation: bool):
-    """B segments: rays (B, 3), depths/validity (B, M), own camera Cv (B, 3)
-    and kv (B,), target cameras per group tC (B, N, 3) and tk (B, N)."""
-    B, M = d1.shape
-    N = tC.shape[1]
-
+def _slot_geometry(r1, r2, rmid, d1, d2, mvalid, Cv, kv, tC, tk, *,
+                   knn: int, check_orientation: bool):
+    """Per slot of B segments: the unit hypothesis direction (3 (B, M)
+    tensors), validity after the orientation gate, and the regularisers
+    den1, den2 (B, M, 1) of its two depths."""
     # hypothesis endpoints (view.cc:356-371): P = C + ray * depth
     P1 = [Cv[:, i, None] + r1[:, i, None] * d1 for i in range(3)]  # 3x (B, M)
     P2 = [Cv[:, i, None] + r2[:, i, None] * d2 for i in range(3)]
@@ -73,6 +83,19 @@ def _score_chunk(r1, r2, rmid, d1, d2, mvalid, Cv, kv, tC, tk, *, knn: int,
     sig2t = dist_t(P2) * tkm
     den1 = (sig1 * sig1 + sig1t * sig1t).clamp_min(EPS)[:, :, None]
     den2 = (sig2 * sig2 + sig2t * sig2t).clamp_min(EPS)[:, :, None]
+    return dirc, ok, den1, den2
+
+
+def _score_chunk(r1, r2, rmid, d1, d2, mvalid, Cv, kv, tC, tk, *, knn: int,
+                 two_sig_a_sqr: float, min_similarity: float,
+                 check_orientation: bool):
+    """B segments: rays (B, 3), depths/validity (B, M), own camera Cv (B, 3)
+    and kv (B,), target cameras per group tC (B, N, 3) and tk (B, N)."""
+    M = d1.shape[1]
+    N = tC.shape[1]
+    dirc, ok, den1, den2 = _slot_geometry(
+        r1, r2, rmid, d1, d2, mvalid, Cv, kv, tC, tk, knn=knn,
+        check_orientation=check_orientation)
 
     # pairwise similarity of matches (m, j), one target group of j at a
     # time; regs come from m, depth diffs vs j (line3D.cc:1417-1446).  Per
@@ -104,6 +127,51 @@ def _score_chunk(r1, r2, rmid, d1, d2, mvalid, Cv, kv, tC, tk, *, knn: int,
     return torch.where(ok, score, zero), ok
 
 
+def pretest_thresholds(two_sig_a_sqr: float,
+                       min_similarity: float) -> tuple[float, float]:
+    """Kernel K2's pre-test thresholds ``(cos_lo, lp)``, float32 values
+    computed in double (the margin argument is in ``csrc/scoring.cu``): a
+    pair is rejected only when ``|dot| < cos_lo`` or ``e_i^2 > den_i * lp``
+    for a depth.  ``cos_lo = -1`` switches the angle test off, ``lp = inf``
+    the depth test, ``lp = -1`` rejects every pair."""
+    ms = float(np.float32(min_similarity))
+    tsa = float(np.float32(two_sig_a_sqr))
+    if not ms >= PRETEST_MIN_SIM or not 0.0 < tsa < math.inf:
+        return -1.0, math.inf
+    if ms >= 1.0:
+        return -1.0, -1.0
+    L = -math.log(ms)
+    lp = _f32((L + PRETEST_DEPTH_ABS) * (1.0 + PRETEST_DEPTH_REL), up=True)
+    a = math.sqrt(tsa * (L + PRETEST_EXP_REL)) / (1.0 - 2.0**-24)
+    theta = a * (1.0 + PRETEST_ANGLE_REL) + PRETEST_ANGLE_ABS
+    if theta >= 90.0:
+        return -1.0, lp
+    return _f32(math.cos(math.radians(theta)) - PRETEST_DOT_ABS,
+                up=False), lp
+
+
+def _f32(x: float, up: bool) -> float:
+    """``x`` rounded to float32 upward or downward."""
+    f = np.float32(x)
+    if (up and float(f) < x) or (not up and float(f) > x):
+        f = np.nextafter(f, np.float32(np.inf if up else -np.inf))
+    return float(f)
+
+
+def pretest_keeps_plain(dot, e1, e2, den1, den2, two_sig_a_sqr: float,
+                        min_similarity: float) -> torch.Tensor:
+    """Kernel K2's pre-test in float32 torch, the same operations: False
+    only where the exact path cannot pass the pair (m, j).  ``dot`` is the
+    dot product of the two unit directions, ``e_i = d_i - d_i[j]`` the
+    depth differences and ``den_i`` slot m's regularisers."""
+    cos_lo, lp = pretest_thresholds(two_sig_a_sqr, min_similarity)
+    f32 = torch.float32
+    lp_t = torch.tensor(lp, dtype=f32, device=dot.device)
+    reject = ((dot.abs() < cos_lo) | (e1 * e1 > den1 * lp_t)
+              | (e2 * e2 > den2 * lp_t))
+    return ~reject
+
+
 def score_matches_plain(r1, r2, rmid, C, k_reg, tgt_C, tgt_k, d_p1, d_p2,
                         valid, *, knn: int, two_sig_a_sqr: float,
                         min_similarity: float = 0.5,
@@ -132,8 +200,11 @@ def score_matches_plain(r1, r2, rmid, C, k_reg, tgt_C, tgt_k, d_p1, d_p2,
 def score_matches_cuda(r1, r2, rmid, C, k_reg, tgt_C, tgt_k, d_p1, d_p2,
                        valid, *, knn: int, two_sig_a_sqr: float,
                        min_similarity: float = 0.5,
-                       check_orientation: bool = True) -> ScoredMatches:
-    """Kernel K2 on CUDA tensors."""
+                       check_orientation: bool = True,
+                       pretest: bool = True) -> ScoredMatches:
+    """Kernel K2 on CUDA tensors.  ``pretest=False`` gives the kernel the
+    thresholds that keep every pair, so that each runs the exact path (what
+    the tests hold the pre-test against)."""
     dev = d_p1.device
     V, S, M = d_p1.shape
     N = tgt_C.shape[1]
@@ -152,11 +223,13 @@ def score_matches_cuda(r1, r2, rmid, C, k_reg, tgt_C, tgt_k, d_p1, d_p2,
     score = torch.empty((V, S, M), dtype=f32, device=dev)
     ok = torch.empty((V, S, M), dtype=torch.bool, device=dev)
     p = kernels.ptr
+    cos_lo, lp = (pretest_thresholds(two_sig_a_sqr, min_similarity)
+                  if pretest else (-1.0, math.inf))
     kernels.launch(
         "l3d_score_matches", p(d_p1), p(d_p2), p(valid), p(r1), p(r2),
         p(rmid), p(C), p(k_reg), p(tgt_C), p(tgt_k), V, S, M, N, knn,
         float(two_sig_a_sqr), float(min_similarity), int(check_orientation),
-        p(score), p(ok), kernels.stream(dev))
+        cos_lo, lp, p(score), p(ok), kernels.stream(dev))
     kernels.LAUNCHES["score_matches"] += 1
     return ScoredMatches(score, ok)
 

@@ -16,10 +16,10 @@ import line3dpp_tpu_torch as lt
 from line3dpp_tpu_torch.models import step
 from line3dpp_tpu_torch.models.pipeline import STEP_ARRAYS
 from line3dpp_tpu_torch.ops import affinity, kernels, matching, scoring
-from line3dpp_tpu_torch.ops import geometry as geo
 from line3dpp_tpu_torch.utils import golden
 
-from test_torch_scenes import STEP_KW, pair_list, synthetic_step_inputs
+from test_torch_scenes import STEP_KW, agreeing_scoring_case, \
+    k2_arguments, k2_scene_arguments, pair_list, synthetic_step_inputs
 
 pytestmark = pytest.mark.gpu
 
@@ -140,24 +140,8 @@ def test_k1_equals_plain_at_the_edges(cuda, knn):
 def test_k2_equals_plain(cuda):
     """Only acosf/expf may round differently from torch's: 1e-5."""
     inp = synthetic_step_inputs(seed=2, V=6, S=300, N=4, n_lines=250)
-    d = {n: torch.from_numpy(inp[n]).to(cuda) for n in STEP_ARRAYS}
-    V, N = d["neighbor_ids"].shape
     knn = 6
-    src = torch.arange(V, dtype=torch.int32,
-                       device=cuda).repeat_interleave(N)
-    pm = matching.match_pairs(d["segments"], d["seg_mask"], d["RtKinv"],
-                              d["C"], src, d["neighbor_ids"].reshape(-1),
-                              d["F"].reshape(-1, 3, 3),
-                              d["pair_valid"].reshape(-1), 0.25, knn)
-    r1, r2 = geo.segment_rays(d["RtKinv"][:, None], d["segments"])
-    mid = 0.5 * (d["segments"][..., 0:2] + d["segments"][..., 2:4])
-    rmid = geo.rays_from_pixels(d["RtKinv"][:, None], mid)
-    nbr = d["neighbor_ids"].long()
-    args = (r1.contiguous(), r2.contiguous(), rmid.contiguous(), d["C"],
-            d["k_reg"], d["C"][nbr].contiguous(),
-            d["k_reg"][nbr].contiguous(),
-            *(step.regroup(x, V, N).contiguous()
-              for x in (pm.d_p1, pm.d_p2, pm.valid)))
+    args = k2_scene_arguments(inp, knn, cuda)
     kw = dict(knn=knn, two_sig_a_sqr=200.0, min_similarity=0.5,
               check_orientation=True)
     got = scoring.score_matches_cuda(*args, **kw)
@@ -166,6 +150,90 @@ def test_k2_equals_plain(cuda):
     assert int((want.score3d > 0).sum()) > 500
     torch.testing.assert_close(got.score3d, want.score3d, rtol=1e-5,
                                atol=1e-5)
+
+
+def _k2_case(dev, seed=0, V=4, S=64, N=4, k=10):
+    """Scoring arguments whose hypotheses agree up to noise, so that many
+    pairs pass: where the table is that large, segment (0, 3) has no valid
+    slot and segment (1, 5) one."""
+    case, k = agreeing_scoring_case(np.random.default_rng(seed), V, S, N, k)
+    if V > 1 and S > 5:
+        valid = case["valid"]
+        valid[0, 3] = False
+        valid[1, 5] = False
+        valid[1, 5, -1] = True
+    return k2_arguments(case, dev), k
+
+
+def _k2_against_exact_path_and_plain(args, kw):
+    """The kernel with its pre-test equals it without (every pair through
+    the exact path, as the kernel ran them before its pre-test) bit for
+    bit, and its plain version up to acosf/expf against torch's."""
+    got = scoring.score_matches_cuda(*args, **kw)
+    every = scoring.score_matches_cuda(*args, pretest=False, **kw)
+    want = scoring.score_matches_plain(*args, chunk=64, **kw)
+    assert torch.equal(got.score3d, every.score3d)
+    assert torch.equal(got.valid, every.valid)
+    assert torch.equal(got.valid, want.valid)
+    torch.testing.assert_close(got.score3d, want.score3d, rtol=1e-5,
+                               atol=1e-5)
+    return got
+
+
+@pytest.mark.parametrize("case", ["default", "knn1", "M1024",
+                                  "no_orientation", "min_similarity_0",
+                                  "min_similarity_1", "wide_angle"])
+def test_k2_pretest_changes_no_bit(cuda, case):
+    kw = dict(two_sig_a_sqr=200.0, min_similarity=0.5,
+              check_orientation=case != "no_orientation")
+    shape = dict(knn1=dict(N=8, k=1), M1024=dict(V=2, S=6, N=4, k=256))
+    args, knn = _k2_case(cuda, **shape.get(case, {}))
+    if case.startswith("min_similarity"):
+        kw["min_similarity"] = float(case[-1])
+    if case == "wide_angle":   # theta* >= 90 degrees: no angle test
+        kw["two_sig_a_sqr"] = 1e6
+    got = _k2_against_exact_path_and_plain(args, dict(knn=knn, **kw))
+    assert not got.valid[0, 3].any()
+    assert not bool(got.score3d[0, 3].any())
+    if case == "min_similarity_1":
+        assert not bool(got.score3d.any())
+    else:
+        assert int((got.score3d > 0).sum()) > 50
+
+
+@pytest.mark.parametrize("term", ["angle", "depth"])
+def test_k2_pair_exactly_at_the_cut(cuda, term):
+    """A segment with two valid slots in different groups: the kernel's own
+    similarity s of the pair (its score at min_similarity 0), then
+    min_similarity = s (fails) and one float below (passes), with and
+    without the pre-test.  ``angle``: the second slot's far depth moved
+    by 0.5% and large regularisers, so sim = sim_a; ``depth``: both its
+    depths times 1.001, so the directions agree and sim = sim_p."""
+    args, knn = _k2_case(cuda, V=1, S=1, N=2, k=2)
+    args = [a.clone() for a in args]
+    d1, d2, valid = args[7], args[8], args[9]
+    valid.zero_()
+    valid[0, 0, 0] = valid[0, 0, knn] = True
+    if term == "angle":
+        # regularisers of ~d^2: sim_p ~ 1 - 3e-5, the angle (~5 degrees)
+        # decides
+        args[4].fill_(1.0)
+        args[6].fill_(1.0)
+        d1[0, 0, knn] = d1[0, 0, 0]
+        d2[0, 0, knn] = d2[0, 0, 0] * 1.005
+    else:
+        d1[0, 0, knn] = d1[0, 0, 0] * 1.001
+        d2[0, 0, knn] = d2[0, 0, 0] * 1.001
+    kw = dict(knn=knn, two_sig_a_sqr=200.0, check_orientation=False)
+    s = scoring.score_matches_cuda(*args, min_similarity=0.0, **kw)
+    sim = float(s.score3d[0, 0, 0])
+    assert 0.05 < sim < 0.999
+    below = float(np.nextafter(np.float32(sim), np.float32(0)))
+    for ms, want in ((sim, 0.0), (below, sim)):
+        for pretest in (True, False):
+            got = scoring.score_matches_cuda(*args, min_similarity=ms,
+                                             pretest=pretest, **kw)
+            assert float(got.score3d[0, 0, 0]) == want, (ms, pretest)
 
 
 def test_k3_equals_plain_bit_for_bit(cuda):

@@ -1,4 +1,5 @@
-"""What kernels K1 and K4 assume of the Python around them, on the CPU.
+"""What kernels K1, K2, K4 and K11 assume of the Python around them, on
+the CPU.
 
 - K4 (``csrc/lsd_cc.cu``) labels patches of ``lsd_cc.cc_patch(tile)`` in
   shared memory: the patch must divide every tile the detector picks.
@@ -8,18 +9,34 @@
   that pre-test in torch; here every candidate the exact test accepts must
   pass it with each quotient moved by the stated error bound
   (``PRETEST_REL_ERR``) either way, also against the tightest cut.
+- K2 (``csrc/scoring.cu``) rejects most slot pairs by a pre-test on the
+  dot product of the two directions and the squared depth differences
+  against thresholds widened by a proven margin
+  (``scoring.pretest_thresholds``); ``scoring.pretest_keeps_plain`` is that
+  pre-test in torch, and here it keeps every pair whose plain similarity
+  passes, with its inputs moved by the error bounds either way, at the cut
+  itself and under the switches.
+- K11 (``csrc/lsd_fit.cu``) reads each component's run from its first
+  position: ``lsd._pixel_list`` returns that table (``starts``), and
+  ``lsd_fit.run_starts`` builds it from a slot list, after
+  ``lsd_fit.check_runs`` has found each component in one run.
 """
+
+import importlib.util
+import os
 
 import numpy as np
 import pytest
 import torch
 
-from line3dpp_tpu_torch.ops import lsd, lsd_cc, matching
+from line3dpp_tpu_torch.ops import lsd, lsd_cc, lsd_fit, matching, scoring
 
-from test_torch_scenes import bundled_step_inputs, pair_list, \
-    synthetic_step_inputs
+from test_torch_lsd_cases import lines_image, random_sorted_case
+from test_torch_scenes import agreeing_scoring_case, bundled_step_inputs, \
+    k2_arguments, k2_scene_arguments, pair_list, synthetic_step_inputs
 
 EPS = matching.EPS
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def test_cc_patch_divides_every_detector_tile():
@@ -169,3 +186,271 @@ def test_k1_pretest_rejects_nearly_all_that_miss():
     keeps = int(matching.pretest_keeps_plain(t1, t2, 0.25).sum())
     assert keeps <= 1.05 * n_cross
     assert keeps < 0.2 * t1.numel()
+
+
+# ---------------------------------------------------------------------------
+# K2: the pre-test
+# ---------------------------------------------------------------------------
+
+TSA, MS = 200.0, 0.5   # Config(): two_sig_a_sqr = 2 * 10^2, min_similarity
+
+
+def _pairs(args, knn):
+    """Over all valid pairs (m, j) of different groups: the pre-test's
+    inputs (dot, e1, e2, den1, den2) and the plain similarity, in the plain
+    version's float32 expressions."""
+    r1, r2, rmid, C, k_reg, tC, tk, d1, d2, valid = args
+    V, S, M = d1.shape
+    flat = lambda x: x.reshape(V * S, *x.shape[2:])
+    vv = torch.arange(V).repeat_interleave(S)
+    dirc, ok, den1, den2 = scoring._slot_geometry(
+        flat(r1), flat(r2), flat(rmid), flat(d1), flat(d2), flat(valid),
+        C[vv], k_reg[vv], tC[vv], tk[vv], knn=knn, check_orientation=True)
+    group = torch.arange(M) // knn
+    pair = ok[:, :, None] & ok[:, None, :] & (group[:, None] != group)
+    b, m, j = torch.nonzero(pair, as_tuple=True)
+    dot = sum(dirc[i][b, m] * dirc[i][b, j] for i in range(3))
+    D1, D2 = flat(d1), flat(d2)
+    e1, e2 = D1[b, m] - D1[b, j], D2[b, m] - D2[b, j]
+    den1, den2 = den1[b, m, 0], den2[b, m, 0]
+    return dot, e1, e2, den1, den2
+
+
+def _plain_sim(dot, e1, e2, den1, den2, tsa=TSA):
+    """min(sim_a, sim_p) as ops/scoring.py:_score_chunk evaluates it."""
+    ang = torch.acos(dot.clamp(-1.0, 1.0)) * scoring.DEG
+    ang = torch.where(ang > 90.0, 180.0 - ang, ang)
+    t = torch.tensor(tsa, dtype=torch.float32)
+    sim_a = torch.exp(-ang * ang / t)
+    sim_p = torch.minimum(torch.exp(-e1 * e1 / den1),
+                          torch.exp(-e2 * e2 / den2))
+    return torch.minimum(sim_a, sim_p)
+
+
+def _k2_scene(name):
+    if name == "agreeing":
+        case, k = agreeing_scoring_case(np.random.default_rng(5), V=4, S=40)
+        return k2_arguments(case), k
+    if name == "bundled":
+        inp = bundled_step_inputs([0, 1, 2, 3, 4], max_line_segments=300,
+                                  num_neighbors=4)
+        return k2_scene_arguments(inp, 6), 6
+    inp = synthetic_step_inputs(seed=int(name[-1]), V=6, S=300, N=4,
+                                n_lines=250)
+    return k2_scene_arguments(inp, 6), 6
+
+
+def _moved(x, sign, rel=None, abs_=None):
+    x = x.double()
+    x = x * (1.0 + sign * rel) if rel is not None else x + sign * abs_
+    return x.float()
+
+
+@pytest.mark.parametrize("scene", ["synthetic1", "synthetic2", "agreeing",
+                                   "bundled"])
+def test_k2_pretest_keeps_every_passing_pair(scene):
+    """The dot product moved by 2^-21 (the bound between the pre-test's
+    and the exact path's dot), the depth differences and regularisers by
+    2^-22 of their size, each either way: no pair whose plain similarity
+    passes min_similarity may be rejected."""
+    args, knn = _k2_scene(scene)
+    dot, e1, e2, den1, den2 = _pairs(args, knn)
+    passing = _plain_sim(dot, e1, e2, den1, den2) > MS
+    assert int(passing.sum()) > 200
+    dot, e1, e2, den1, den2 = (x[passing] for x in (dot, e1, e2, den1, den2))
+    for s in (-1.0, 1.0):
+        for t in (-1.0, 1.0):
+            keeps = scoring.pretest_keeps_plain(
+                _moved(dot, s, abs_=2.0**-21), _moved(e1, t, rel=2.0**-22),
+                _moved(e2, t, rel=2.0**-22), _moved(den1, -t, rel=2.0**-22),
+                _moved(den2, -t, rel=2.0**-22), TSA, MS)
+            assert bool(keeps.all())
+
+
+def _float_neighbours(x: float, count: int):
+    """``count`` float32 values on each side of float32(x), in order."""
+    f = torch.tensor(x, dtype=torch.float32)
+    lo, hi, out = f, f, [f]
+    for _ in range(count):
+        lo = torch.nextafter(lo, torch.tensor(-np.inf))
+        hi = torch.nextafter(hi, torch.tensor(np.inf))
+        out = [lo] + out + [hi]
+    return torch.stack(out)
+
+
+def test_k2_pretest_keeps_pairs_at_the_cut():
+    """Depth differences and angles whose plain similarity lands exactly on
+    min_similarity and one float above it: the pre-test keeps both (the
+    first fails the exact test, the margin keeps it all the same)."""
+    ms = torch.tensor(MS, dtype=torch.float32)
+    above = torch.nextafter(ms, torch.tensor(1.0))
+    one = torch.ones(())
+    found = {"depth": set(), "angle": set()}
+    # depth: den 1 and 3.7, e near sqrt(den ln 2)
+    for den in (1.0, 3.7):
+        e = _float_neighbours(float(np.sqrt(den * np.log(2.0))), 4000)
+        d = torch.full_like(e, den)
+        sim = _plain_sim(one.expand_as(e), e, torch.zeros_like(e), d, d)
+        for target in (ms, above):
+            at = sim == target
+            if at.any():
+                found["depth"].add(float(target))
+                assert bool(scoring.pretest_keeps_plain(
+                    one.expand_as(e[at]), e[at], torch.zeros_like(e[at]),
+                    d[at], d[at], TSA, MS).all())
+    # angle: a dot near cos(theta*), on both sides of 90 degrees, and
+    # two_sig_a_sqr moved float by float until sim_a lands on the cut
+    c = float(np.cos(np.radians(np.sqrt(TSA * np.log(2.0)))))
+    tsa = _float_neighbours(TSA, 4000)
+    for sign in (1.0, -1.0):
+        dot = torch.tensor(sign * c, dtype=torch.float32)
+        ang = torch.acos(dot) * scoring.DEG
+        ang = torch.where(ang > 90.0, 180.0 - ang, ang)
+        sim = torch.exp(-ang * ang / tsa)
+        for target in (ms, above):
+            for t in tsa[sim == target].tolist():
+                found["angle"].add(float(target))
+                assert bool(scoring.pretest_keeps_plain(
+                    dot, torch.zeros(()), torch.zeros(()), one, one, t, MS))
+    assert found["depth"] == found["angle"] == {float(ms), float(above)}
+
+
+def test_k2_pretest_switches():
+    f = lambda *v: torch.tensor(v, dtype=torch.float32)
+    dot, e, den = f(0.0, 0.01, 0.99), f(0.0, 50.0, 0.0), f(1.0, 1.0, 1.0)
+    keeps = lambda tsa, ms: scoring.pretest_keeps_plain(dot, e, e, den, den,
+                                                        tsa, ms).tolist()
+    # min_similarity <= 0: every pair survives
+    assert keeps(TSA, 0.0) == keeps(TSA, -0.5) == [True] * 3
+    assert scoring.pretest_thresholds(TSA, 0.0) == (-1.0, float("inf"))
+    # min_similarity >= 1: none can pass
+    assert keeps(TSA, 1.0) == keeps(TSA, 1.5) == [False] * 3
+    # theta* >= 90 degrees: no angle test, the depth test stays
+    assert scoring.pretest_thresholds(1e6, MS)[0] == -1.0
+    assert keeps(1e6, MS) == [True, False, True]
+    # the defaults: orthogonal and far pairs go, a close one stays
+    assert keeps(TSA, MS) == [False, False, True]
+
+
+def test_k2_pretest_rejects_nearly_all_that_fail():
+    """The margin is not so wide that the pre-test stops rejecting: on the
+    synthetic scene it keeps at most 1.2 times the pairs that pass, and
+    rejects most pairs."""
+    args, knn = _k2_scene("synthetic1")
+    dot, e1, e2, den1, den2 = _pairs(args, knn)
+    passing = int((_plain_sim(dot, e1, e2, den1, den2) > MS).sum())
+    keeps = int(scoring.pretest_keeps_plain(dot, e1, e2, den1, den2, TSA,
+                                            MS).sum())
+    assert passing <= keeps <= 1.2 * passing
+    assert keeps < 0.5 * dot.numel()
+
+
+def test_k2_pretest_counts_agree_with_the_pairs():
+    """chip_smoke.pretest_counts (what the turns script and chip_smoke.py
+    report) counts the same pairs and survivors as the pair list, and each
+    test's keeps as the pre-test with the other test's input neutral."""
+    args, knn = _k2_scene("synthetic2")
+    dot, e1, e2, den1, den2 = _pairs(args, knn)
+    n = _chip_smoke().pretest_counts(*args, knn=knn, two_sig_a_sqr=TSA,
+                                     min_similarity=MS, chunk=97)
+    keeps = lambda *x: int(scoring.pretest_keeps_plain(*x, TSA, MS).sum())
+    assert n["pairs"] == dot.numel()
+    assert n["survivors"] == keeps(dot, e1, e2, den1, den2)
+    assert n["angle_keeps"] == int((dot.abs() >= scoring.pretest_thresholds(
+        TSA, MS)[0]).sum())
+    assert n["depth_keeps"] == keeps(torch.ones_like(dot), e1, e2, den1,
+                                     den2)
+    assert n["survivors"] <= min(n["angle_keeps"], n["depth_keeps"])
+    assert n["warp_steps_survivor"] <= n["warp_steps"] <= n["pairs"]
+    assert n["partner_steps_survivor"] <= n["partner_steps"] <= n["pairs"]
+    assert n["segments_no_valid"] < n["segments"]
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(REPO, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+# ---------------------------------------------------------------------------
+# K11: the run table
+# ---------------------------------------------------------------------------
+
+def _heads(slot, C):
+    """First position of each component's run, n where it has none."""
+    n = len(slot)
+    out = np.full(C, n, np.int64)
+    for i in range(n - 1, -1, -1):
+        if 0 <= slot[i] < C and (i == 0 or slot[i - 1] != slot[i]):
+            out[slot[i]] = i
+    # an empty component takes the next start
+    for c in range(C - 2, -1, -1):
+        out[c] = min(out[c], out[c + 1])
+    return out
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_run_starts_are_the_run_heads(seed):
+    """Random sorted slot lists with whole runs dumped between components,
+    as tests/test_lsd_fit.py makes them: 256 slots, 40 runs, so most
+    components are empty."""
+    rng = np.random.default_rng(seed)
+    slot = random_sorted_case(rng, n=int(rng.integers(50, 3000)))[0]
+    starts = lsd_fit.run_starts(torch.from_numpy(slot), 256)
+    assert starts.dtype == torch.int32 and starts.shape == (256,)
+    assert np.array_equal(starts.numpy(), _heads(slot, 256))
+    # run c lies in [starts[c], starts[c + 1])
+    bounds = np.append(starts.numpy(), len(slot))
+    for c in np.unique(slot[slot < 256]):
+        where = np.nonzero(slot == c)[0]
+        assert bounds[c] == where[0] and where[-1] < bounds[c + 1]
+
+
+def test_run_starts_edges():
+    z = torch.zeros(0, dtype=torch.int32)
+    assert lsd_fit.run_starts(z, 0).shape == (0,)
+    assert lsd_fit.run_starts(z, 3).tolist() == [0, 0, 0]
+    assert lsd_fit.run_starts(torch.tensor([0, 0, 0], dtype=torch.int32),
+                              0).shape == (0,)
+    # a component at the end of the list, dump before and between
+    slot = torch.tensor([2, 2, 0, 0, 0, 2, 1, 1, 1], dtype=torch.int32)
+    assert lsd_fit.run_starts(slot, 2).tolist() == [2, 6]
+    # the last component empty, then the first
+    assert lsd_fit.run_starts(slot[:5], 2).tolist() == [2, 5]
+    assert lsd_fit.run_starts(slot[6:], 2).tolist() == [0, 0]
+
+
+@pytest.mark.parametrize("seed", range(2))
+def test_check_runs_takes_whole_runs_and_refuses_split_ones(seed):
+    """lsd_fit.check_runs, which K11's wrapper runs when it builds the run
+    table: the random sorted lists pass; a component split by dump pixels
+    or by another component is refused, naming it."""
+    rng = np.random.default_rng(seed)
+    slot = random_sorted_case(rng, n=int(rng.integers(50, 3000)))[0]
+    lsd_fit.check_runs(torch.from_numpy(slot), 256)
+    lsd_fit.check_runs(torch.zeros(0, dtype=torch.int32), 3)
+    c = int(slot[slot < 256][0])
+    where = np.nonzero(slot == c)[0]
+    split = np.concatenate([slot[:where[-1] + 1], [256], [c], slot[
+        where[-1] + 1:]]).astype(np.int32)
+    with pytest.raises(ValueError, match=f"component {c} has 2 runs"):
+        lsd_fit.check_runs(torch.from_numpy(split), 256)
+    for order in ([0, 1, 0], [1, 0, 0, 2, 1, 1]):
+        with pytest.raises(ValueError, match="has 2 runs"):
+            lsd_fit.check_runs(torch.tensor(order, dtype=torch.int32), 2)
+
+
+def test_pixel_list_returns_the_run_table():
+    """On a small detection's round-1 list: every component's first
+    position, equal to run_starts of its slots."""
+    img, _ = lsd._prepare(lines_image(), -1, torch.device("cpu"))
+    _, _, th, tw, _, _ = lsd._statics(*img.shape)
+    pl = lsd._pixel_list(*lsd._grad_compact(img), lsd.PREC, (th, tw))
+    slot, C = pl["slot"].numpy(), pl["C"]
+    assert C > 3 and (slot == C).any()
+    assert pl["starts"].dtype == torch.int32
+    assert np.array_equal(pl["starts"].numpy(), _heads(slot, C))
+    assert torch.equal(pl["starts"], lsd_fit.run_starts(pl["slot"], C))
+    lsd_fit.check_runs(pl["slot"], C)

@@ -256,6 +256,123 @@ def test_fit_kernels_at_detection_sizes(cuda):
     assert torch.equal(np8, np9)
 
 
+def _k11_runs(lengths, dump, seed=0):
+    """A slot list of runs of the given lengths, ``dump[c]`` dump pixels
+    before run c, random payloads and tables as the detector's."""
+    rng = np.random.default_rng(seed)
+    C = len(lengths)
+    slot = []
+    for c, (m, d) in enumerate(zip(lengths, dump)):
+        slot += [C] * d + [c] * m
+    slot = np.array(slot + [C] * 3, np.int32)
+    n = len(slot)
+    xs = rng.integers(0, 2560, n).astype(np.float32)
+    ys = rng.integers(0, 1920, n).astype(np.float32)
+    pix = (rng.uniform(size=n) < 0.9).astype(np.float32)
+    tables, _ = random_tables(rng, C, n)
+    tables[:, 2] = rng.uniform(0, 2560, C)
+    tables[:, 3] = rng.uniform(0, 1920, C)
+    return slot, xs, ys, pix, tables, C
+
+
+def _k11_equal(dev, slot, xs, ys, pix, tables, C):
+    t = [torch.from_numpy(v).to(dev) for v in (slot, xs, ys, pix, tables)]
+    want = lsd_fit.extents_plain(*t, C)
+    starts = lsd_fit.run_starts(t[0], C)
+    for given in (None, starts):
+        got = lsd_fit.extents_cuda(*t, C, starts=given)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    return want
+
+
+@pytest.mark.parametrize("layout", ["boundaries", "long", "short"])
+def test_k11_runs_across_warps_and_blocks(cuda, layout):
+    """Runs that start and end on and next to the kernel's thread (8
+    pixels), warp (256), tile (2048) and chunk (4096) borders, runs longer
+    than several chunks, and many short runs; all bit-equal to the plain
+    version, with the run table given and built by the wrapper."""
+    rng = np.random.default_rng(1)
+    if layout == "boundaries":
+        lengths, dump = [], []
+        for edge in (8, 256, 2048, 4096, 8192):
+            for d in (-1, 0, 1):
+                lengths.append(edge + d)
+                dump.append(int(rng.integers(0, 3)))
+    elif layout == "long":
+        lengths = [20000, 5, 4096 * 3 + 7, 9000]
+        dump = [4093, 0, 11, 4096]
+    else:
+        lengths = list(rng.integers(5, 70, 6000))
+        dump = list(rng.integers(0, 6, 6000) * (rng.uniform(size=6000) < 0.5))
+    _k11_equal(cuda, *_k11_runs(lengths, dump))
+
+
+def test_k11_small_empty_and_pixless_components(cuda):
+    """A 5-pixel component, a component whose pixels all have pix == 0
+    (BIG), components with no pixel in a built run table (BIG), and a
+    component at the very end of the list."""
+    slot, xs, ys, pix, tables, C = _k11_runs([5, 40, 300, 7], [2, 0, 9, 1])
+    pix[slot == 1] = 0.0
+    slot = slot[:-3]                      # component 3 ends the list
+    xs, ys, pix = xs[:-3], ys[:-3], pix[:-3]
+    want = _k11_equal(cuda, slot, xs, ys, pix, tables, C)
+    assert (want[1] == lsd_fit.BIG).all() and (want[0] != lsd_fit.BIG).all()
+    # components 1 and 4 have no pixel: slots renamed around them
+    slot2 = np.where(slot >= 1, slot + 1, slot).astype(np.int32)
+    slot2 = np.where(slot == C, C + 2, slot2).astype(np.int32)
+    tables2 = np.concatenate([tables[:1], tables[:1], tables[1:],
+                              tables[:1]])
+    want2 = _k11_equal(cuda, slot2, xs, ys, pix, tables2, C + 2)
+    assert (want2[1] == lsd_fit.BIG).all() and (want2[C + 1] ==
+                                                 lsd_fit.BIG).all()
+
+
+def test_k11_signed_zero_at_the_centre(cuda):
+    """A pixel on the component's centre with ct < 0 and st < 0 projects to
+    l = -0.0 and -w = -0.0; the kernel orders -0.0 below +0.0 and returns
+    the plain version's signed zeros."""
+    slot, xs, ys, pix, tables, C = _k11_runs([3, 20], [0, 1])
+    tables[0, :4] = (-0.6, -0.8, 100.0, 200.0)
+    xs[:3], ys[:3], pix[:3] = 100.0, 200.0, (1.0, 1.0, 0.0)
+    want = _k11_equal(cuda, slot, xs, ys, pix, tables, C)
+    assert want[0].tolist() == [0.0, 0.0, 0.0, 0.0]
+    assert torch.signbit(want[0]).tolist() == [True, False, False, True]
+
+
+def test_k11_with_the_detectors_run_table(cuda):
+    """On a detection's round-1 list: the run table of _pixel_list gives
+    what the built one and the plain version give."""
+    img, _ = lsd._prepare(lines_image(), -1, cuda)
+    _, _, th, tw, _, _ = lsd._statics(*img.shape)
+    pl = lsd._pixel_list(*lsd._grad_compact(img), lsd.PREC, (th, tw))
+    slot, C = pl["slot"], pl["C"]
+    assert C > 3
+    assert torch.equal(pl["starts"], lsd_fit.run_starts(slot, C))
+    rng = np.random.default_rng(2)
+    tables = torch.from_numpy(random_tables(rng, C, 1)[0]).to(cuda)
+    pix = torch.ones(pl["n"], device=cuda)
+    args = (slot, pl["xs"], pl["ys"], pix, tables, C)
+    want = lsd_fit.extents_plain(*args)
+    assert torch.equal(lsd_fit.extents_cuda(*args, starts=pl["starts"]),
+                       want)
+    assert torch.equal(lsd_fit.extents_cuda(*args), want)
+
+
+def test_k11_refuses_a_split_component_without_a_run_table(cuda):
+    """A component in two runs (dump pixels or another component between
+    them): the wrapper raises where the kernel would miss the second run;
+    the plain version takes any order."""
+    rng = np.random.default_rng(3)
+    tables = torch.from_numpy(random_tables(rng, 2, 1)[0]).to(cuda)
+    for order in ([0, 0, 2, 0, 1, 1], [0, 0, 1, 1, 0]):
+        slot = torch.tensor(order, dtype=torch.int32, device=cuda)
+        ones = torch.ones(len(order), device=cuda)
+        with pytest.raises(ValueError, match="component 0 has 2 runs"):
+            lsd_fit.extents_cuda(slot, ones, ones, ones, tables, 2)
+        assert (lsd_fit.extents_plain(slot, ones, ones, ones, tables, 2)
+                != lsd_fit.BIG).all()
+
+
 def _band_tables(rng, tables):
     """Columns 4 and 5 as K10 reads them: band mid-line and width."""
     t = tables.copy()

@@ -8,6 +8,7 @@ testdata) and handed to both packages as numpy arrays.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from line3dpp_tpu_torch.camera import (Camera, CameraBatch,
                                        fundamental_matrix,
@@ -82,6 +83,63 @@ def bundled_step_inputs(cam_ids, max_line_segments: int,
         pipe.add_view(v.cam_id, lt.Camera(v.K, v.R, v.t, v.width, v.height),
                       v.segments)
     return pipe.step_inputs()
+
+
+def agreeing_scoring_case(rng, V: int = 6, S: int = 40, N: int = 4,
+                          k: int = 5):
+    """Scoring inputs in which the hypotheses of one segment agree up to
+    noise, so that many slot pairs pass min_similarity and the scores are
+    not trivially 0: numpy arrays named as ``score_matches``'s arguments,
+    and k."""
+    def unit(x):
+        return (x / np.linalg.norm(x, axis=-1, keepdims=True)).astype(
+            np.float32)
+
+    M = N * k
+    r1 = unit(rng.normal(size=(V, S, 3)))
+    r2 = unit(r1 + rng.normal(0, 0.05, (V, S, 3)))
+    rmid = unit(r1 + r2 + rng.normal(0, 0.3, (V, S, 3)))
+    base = rng.uniform(2.0, 12.0, (V, S, 1))
+    d1 = (base + rng.normal(0, 0.01, (V, S, M))).astype(np.float32)
+    d2 = (base * rng.uniform(0.9, 1.1, (V, S, 1))
+          + rng.normal(0, 0.01, (V, S, M))).astype(np.float32)
+    return dict(
+        r1=r1, r2=r2, rmid=rmid,
+        C=rng.normal(size=(V, 3)).astype(np.float32),
+        k_reg=rng.uniform(1e-3, 3e-3, V).astype(np.float32),
+        neighbor_ids=rng.integers(0, V, (V, N)).astype(np.int32),
+        d_p1=d1, d_p2=d2,
+        valid=rng.uniform(size=(V, S, M)) > 0.25), k
+
+
+def k2_arguments(case: dict, dev="cpu") -> tuple:
+    """Kernel K2's positional arguments (``scoring.score_matches_cuda`` and
+    ``score_matches_plain``) from an :func:`agreeing_scoring_case` on
+    ``dev``: the target cameras gathered by neighbour."""
+    nbr = case["neighbor_ids"]
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    return (*(t(case[n]) for n in ("r1", "r2", "rmid", "C", "k_reg")),
+            t(case["C"][nbr]), t(case["k_reg"][nbr]),
+            *(t(case[n]) for n in ("d_p1", "d_p2", "valid")))
+
+
+def k2_scene_arguments(inp: dict, knn: int, dev="cpu") -> tuple:
+    """Kernel K2's positional arguments for a step-input scene, from the
+    matcher's table on ``dev`` as ``models/step.py`` builds them."""
+    from line3dpp_tpu_torch.models import step
+    from line3dpp_tpu_torch.ops import matching
+
+    d = {n: torch.from_numpy(inp[n]).to(dev) for n in (
+        "segments", "seg_mask", "RtKinv", "C", "k_reg", "neighbor_ids", "F",
+        "pair_valid")}
+    V, N = d["neighbor_ids"].shape
+    pm = matching.match_pairs(
+        d["segments"], d["seg_mask"], d["RtKinv"], d["C"],
+        torch.arange(V, dtype=torch.int32, device=dev).repeat_interleave(N),
+        d["neighbor_ids"].reshape(-1), d["F"].reshape(-1, 3, 3),
+        d["pair_valid"].reshape(-1), 0.25, knn)
+    return step.score_inputs(d["segments"], d["RtKinv"], d["C"], d["k_reg"],
+                             d["neighbor_ids"], pm)
 
 
 def pair_list(inp: dict):

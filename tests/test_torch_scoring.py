@@ -18,29 +18,7 @@ from line3dpp_tpu.ops import scoring as jax_scoring
 from line3dpp_tpu.ops import scoring_pallas
 from line3dpp_tpu_torch.ops import scoring
 
-
-def _case(rng, V=6, S=40, N=4, k=5):
-    """Hypotheses of one segment agree up to noise, so that many slot
-    pairs pass min_similarity and the scores are not trivially 0."""
-    def unit(x):
-        return (x / np.linalg.norm(x, axis=-1, keepdims=True)).astype(
-            np.float32)
-
-    M = N * k
-    r1 = unit(rng.normal(size=(V, S, 3)))
-    r2 = unit(r1 + rng.normal(0, 0.05, (V, S, 3)))
-    rmid = unit(r1 + r2 + rng.normal(0, 0.3, (V, S, 3)))
-    base = rng.uniform(2.0, 12.0, (V, S, 1))
-    d1 = (base + rng.normal(0, 0.01, (V, S, M))).astype(np.float32)
-    d2 = (base * rng.uniform(0.9, 1.1, (V, S, 1))
-          + rng.normal(0, 0.01, (V, S, M))).astype(np.float32)
-    return dict(
-        r1=r1, r2=r2, rmid=rmid,
-        C=rng.normal(size=(V, 3)).astype(np.float32),
-        k_reg=rng.uniform(1e-3, 3e-3, V).astype(np.float32),
-        neighbor_ids=rng.integers(0, V, (V, N)).astype(np.int32),
-        d_p1=d1, d_p2=d2,
-        valid=rng.uniform(size=(V, S, M)) > 0.25), k
+from test_torch_scenes import agreeing_scoring_case, k2_arguments
 
 
 def _port(case, k, orientation=True, chunk=64):
@@ -61,7 +39,7 @@ def _jax_args(case):
 
 @pytest.mark.parametrize("orientation", [True, False])
 def test_plain_matches_xla(rng, orientation):
-    case, k = _case(rng)
+    case, k = agreeing_scoring_case(rng)
     want = jax_scoring.score_matches(
         *_jax_args(case), knn=k, two_sig_a_sqr=200.0, min_similarity=0.5,
         check_orientation=orientation, chunk=32)
@@ -73,7 +51,7 @@ def test_plain_matches_xla(rng, orientation):
 
 
 def test_plain_matches_pallas_interpret(rng):
-    case, k = _case(rng)
+    case, k = agreeing_scoring_case(rng)
     want = scoring_pallas.score_matches_pallas(
         *_jax_args(case), knn=k, two_sig_a_sqr=200.0, min_similarity=0.5,
         check_orientation=True, seg_tile=16, interpret=True)
@@ -84,7 +62,7 @@ def test_plain_matches_pallas_interpret(rng):
 
 
 def test_chunking_does_not_change_results(rng):
-    case, k = _case(rng, V=3, S=30)
+    case, k = agreeing_scoring_case(rng, V=3, S=30)
     a = _port(case, k, chunk=7)
     b = _port(case, k, chunk=1000)
     np.testing.assert_array_equal(a[0], b[0])
@@ -94,7 +72,7 @@ def test_chunking_does_not_change_results(rng):
 def test_own_group_never_scores(rng):
     """A slot is only confirmed by other cameras: with a single neighbour
     group every score is 0."""
-    case, k = _case(rng, N=1, k=6)
+    case, k = agreeing_scoring_case(rng, N=1, k=6)
     case["neighbor_ids"] = case["neighbor_ids"][:, :1]
     score, ok = _port(case, k)
     assert ok.any()
@@ -102,12 +80,8 @@ def test_own_group_never_scores(rng):
 
 
 def test_cuda_wrapper_rejects_what_the_kernel_does_not_take(rng):
-    case, k = _case(rng, V=2, S=4, N=2, k=3)
-    t = {n: torch.from_numpy(v) for n, v in case.items()}
-    tgt_C = t["C"][t["neighbor_ids"].long()]
-    tgt_k = t["k_reg"][t["neighbor_ids"].long()]
-    args = (t["r1"], t["r2"], t["rmid"], t["C"], t["k_reg"], tgt_C, tgt_k,
-            t["d_p1"], t["d_p2"], t["valid"])
+    case, k = agreeing_scoring_case(rng, V=2, S=4, N=2, k=3)
+    args = k2_arguments(case)
     with pytest.raises(ValueError, match="N\\*knn"):
         scoring.score_matches_cuda(*args, knn=k + 1, two_sig_a_sqr=200.0)
     with pytest.raises(ValueError, match="CUDA"):
