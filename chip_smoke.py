@@ -8,7 +8,9 @@
 2. Builds the CUDA kernels from ``line3dpp_tpu_torch/csrc`` (timed),
    prints ptxas' registers, shared memory and spills of every kernel, and
    counts the reject paths of K1 (SASS instructions per candidate) and K2
-   (per slot pair) with ``cuobjdump -sass``, where the toolkit has it.
+   (per slot pair) with ``cuobjdump -sass``, where the toolkit has it;
+   holds ``sincosf`` (K8's gate) against ``sinf`` and ``cosf`` (K9's) bit
+   for bit on all 2^32 float32 arguments (``SINCOS_CHECK_CU``).
 3. Cached segments to lines: loads the 26 bundled views and holds kernels
    K1-K3 against their plain PyTorch versions on the card at that path's
    shapes (26 views, S = 3000, N = 16, k = 10, M = 160), timing both with
@@ -27,7 +29,9 @@
    holds the detection kernels K4-K11 against their plain versions
    on view 0's round-1 inputs and on synthetic full-size grids at a real
    photo's density (``FULL_SIZE_ACTIVE``) and with long edges
-   (``synthetic_stripes``), compares every view's
+   (``synthetic_stripes``) (K7, K8 and K11 with the detector's run table
+   and with the one their wrappers build; K7 and K8 also bit-identical in
+   a second call), compares every view's
    detections with the JAX ones (``DETECT_*``), reconstructs from JAX's
    detections (JAX's lines at count_f1 >= 0.99, and count_f1, recall and
    precision against the 74 ground-truth lines within 0.02 of JAX's), and
@@ -40,9 +44,11 @@
    the number of rescued rectangles of every view (``RESCUE_*``) and all
    eleven kernels required to have launched.
 5. Prints one ``{"full_size": ...}`` line (the detection kernels on the
-   synthetic grids), one ``{"kernels": [...]}`` line, the nvidia-smi line,
-   and last ``{"ok": true, "device": {...}}``.  Any failed check exits
-   non-zero.
+   synthetic grids), one ``{"kernels": [...]}`` line (``launches``: the
+   rescue path's run, which launches every kernel; ``launches_default``:
+   the ``Config(optimize=False)`` run, which launches no K10), the
+   nvidia-smi line, and last ``{"ok": true, "device": {...}}``.  Any
+   failed check exits non-zero.
 
 ``--out DIR`` writes the build log (and the profiles) there; ``--profile``
 adds a torch.profiler breakdown of one more ``match_images`` run, of the
@@ -53,6 +59,8 @@ bundling iterations.
 from __future__ import annotations
 
 import argparse
+import ctypes
+import hashlib
 import json
 import os
 import shutil
@@ -137,6 +145,44 @@ FULL_SIZE_KEYS = ("name", "max_abs_err", "ms", "device_ms", "plain_ms",
 # the long-edge grid: bands of this many rows of one angle, 47% active
 STRIPE_ROWS = 8
 STRIPE_ACTIVE = 0.47
+# K8 gates with sincosf, K9 with sinf and cosf: their bits
+# must agree for every float32 argument, so that K8's newpix equals K9's on
+# any input.  This kernel compares them on all 2^32 bit patterns (a NaN
+# result matches a NaN), built with the package's nvcc flags.
+SINCOS_CHECK_CU = r"""
+#include <cstdint>
+#include <cuda_runtime.h>
+
+__global__ void sincos_check(uint32_t z1, uint32_t z2,
+                             unsigned long long* bad, unsigned int* first) {
+  const uint64_t stride = (uint64_t)gridDim.x * blockDim.x;
+  for (uint64_t i = (uint64_t)blockIdx.x * blockDim.x + threadIdx.x;
+       i < (1ull << 32); i += stride) {
+    const uint32_t u = (uint32_t)i;
+    float s, c;
+    sincosf(__uint_as_float(u), &s, &c);
+    // z1 = z2 = 0, which the compiler cannot know: sinf and cosf stay two
+    // calls and are not merged into a sincosf
+    const float s1 = sinf(__uint_as_float(u ^ z1));
+    const float c1 = cosf(__uint_as_float(u ^ z2));
+    const bool same =
+        (__float_as_uint(s) == __float_as_uint(s1) || (s != s && s1 != s1)) &&
+        (__float_as_uint(c) == __float_as_uint(c1) || (c != c && c1 != c1));
+    if (!same) {
+      atomicAdd(bad, 1ull);
+      atomicMin(first, u);
+    }
+  }
+}
+
+extern "C" int l3d_check_sincos(unsigned long long* bad, unsigned int* first,
+                                unsigned int z1, unsigned int z2,
+                                void* stream) {
+  sincos_check<<<132 * 16, 256, 0, (cudaStream_t)stream>>>(z1, z2, bad,
+                                                          first);
+  return (int)cudaGetLastError();
+}
+"""
 
 
 def fail(msg: str) -> None:
@@ -612,6 +658,53 @@ def synthetic_stripes(frac: float, seed: int, dev):
     return (angle, active, idx, mag[idx], angle.reshape(-1)[idx], (th, tw))
 
 
+def sincos_library(start: bool = False):
+    """The library of ``SINCOS_CHECK_CU`` under build/sincos_check/<hash>/:
+    with ``start``, the nvcc process that builds it (None when it is
+    built), else the loaded library."""
+    from line3dpp_tpu_torch.ops import kernels
+
+    h = hashlib.sha256((SINCOS_CHECK_CU + " ".join(kernels.NVCC_FLAGS))
+                       .encode()).hexdigest()[:16]
+    out_dir = os.path.join(os.path.dirname(kernels.BUILD_DIR),
+                           "sincos_check", h)
+    lib = os.path.join(out_dir, "libcheck.so")
+    if start:
+        if os.path.exists(lib):
+            return None
+        os.makedirs(out_dir, exist_ok=True)
+        src = os.path.join(out_dir, "check.cu")
+        with open(src, "w") as f:
+            f.write(SINCOS_CHECK_CU)
+        return subprocess.Popen([kernels._nvcc(), *kernels.NVCC_FLAGS,
+                                 "-shared", src, "-o", lib],
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+    if not os.path.exists(lib):
+        proc = sincos_library(start=True)
+        out, _ = proc.communicate()
+        check(proc.returncode == 0, f"the sincosf check did not build: {out}")
+    cdll = ctypes.CDLL(lib)
+    cdll.l3d_check_sincos.argtypes = [ctypes.c_void_p] * 2 + \
+        [ctypes.c_uint] * 2 + [ctypes.c_void_p]
+    cdll.l3d_check_sincos.restype = ctypes.c_int
+    return cdll
+
+
+def sincos_differences(dev) -> tuple[int, int]:
+    """How many float32 arguments ``sincosf`` and ``sinf``/``cosf`` give
+    other bits for on the card, and the bits of the first (-1: none)."""
+    import torch
+    from line3dpp_tpu_torch.ops import kernels
+
+    bad = torch.zeros(1, dtype=torch.int64, device=dev)
+    first = torch.full((1,), -1, dtype=torch.int32, device=dev)
+    rc = sincos_library().l3d_check_sincos(
+        kernels.ptr(bad), kernels.ptr(first), 0, 0, kernels.stream(dev))
+    check(rc == 0, f"the sincosf check did not launch: CUDA error {rc}")
+    return int(bad), (int(first) & 0xFFFFFFFF) if int(bad) else -1
+
+
 def ptxas_report(build_log: str) -> list[str]:
     """One line per kernel from the build log's ``ptxas -v`` report: the
     source, the kernel's name (demangled where cu++filt exists), its
@@ -842,32 +935,44 @@ def check_lsd_kernels(angle, active, idx, mag_c, ang_c, tile, dev,
           f">= 5), {n_real} pixels in them", flush=True)
 
     # K7: float64 sums in both versions; they may differ in the last bit of
-    # the float32 result only
+    # the float32 result only.  With the detector's run table, as
+    # _lsd_round calls it, and without (the wrapper builds it); the order
+    # of the sums is fixed, so a second call gives the same bits.
     def rel_err(a, b):
         return float(((a - b).abs() / b.abs().clamp_min(1e-30)).max())
 
-    mom = lsd_fit.moments_cuda(slot, xs, ys, mag, pix, C)
+    def same_bits(a, b):
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+    starts = pl["starts"]
+    mom = lsd_fit.moments_cuda(slot, xs, ys, mag, pix, C, starts)
+    mom_again = lsd_fit.moments_cuda(slot, xs, ys, mag, pix, C, starts)
+    mom_built = lsd_fit.moments_cuda(slot, xs, ys, mag, pix, C)
     mom_p = lsd_fit.moments_plain(slot, xs, ys, mag, pix, C)
     torch.cuda.synchronize()
-    err7 = rel_err(mom, mom_p)
+    err7 = max(rel_err(mom, mom_p), rel_err(mom_built, mom_p))
+    repeat7 = same_bits(mom, mom_again) and same_bits(mom, mom_built)
     print(f"[{what}] K7 moments: max rel err {err7:.3g} (limit 1e-6), max "
-          f"|err| {float((mom - mom_p).abs().max()):.3g}", flush=True)
+          f"|err| {float((mom - mom_p).abs().max()):.3g} (run table given "
+          f"and built); two calls bit-identical: {repeat7}", flush=True)
     check(err7 <= 1e-6, "K7 disagrees with its plain version")
+    check(repeat7, "K7 gives other bits in another call")
     terms = lsd_fit._moment_terms(xs, ys, mag, pix)
     acc7 = torch.zeros((C + 1, 7), dtype=torch.float32, device=dev)
     slot_l = slot.long()
     rows.append(kernel_row(
         "K7 moments", "lsd_fit.cu", "line3dpp_tpu/ops/lsd_fit.py:137",
         float((mom - mom_p).abs().max()),
-        lambda: lsd_fit.moments_cuda(slot, xs, ys, mag, pix, C),
+        lambda: lsd_fit.moments_cuda(slot, xs, ys, mag, pix, C, starts),
         cuda_ms(lambda: lsd_fit.moments_plain(slot, xs, ys, mag, pix, C), 5),
+        # the function's bytes: five pixel planes and the (C, 8) output;
+        # not the run table, which only this kernel's design needs
         K7_OPS_PER_PIXEL * n_real, nbytes(slot, xs, ys, mag, pix, mom),
         library=lambda: acc7.index_add_(0, slot_l, terms)))
 
     # the first fit's tables, and K11 on them: exact minima
     # with the detector's run table, as _lsd_round calls it, and without
     tables, npix, _ = lsd._axis_tables(mom_p)
-    starts = pl["starts"]
     ext = lsd_fit.extents_cuda(slot, xs, ys, pix, tables, C, starts)
     ext_built = lsd_fit.extents_cuda(slot, xs, ys, pix, tables, C)
     ext_p = lsd_fit.extents_plain(slot, xs, ys, pix, tables, C)
@@ -902,7 +1007,9 @@ def check_lsd_kernels(angle, active, idx, mag_c, ang_c, tile, dev,
     f = lsd._rectangles(tables, npix, ext_p)
     t8 = lsd._with_gate(f, lsd._refine_gate(f)[0])
     args8 = (slot, xs, ys, ang, mag, pix, t8, True, lsd.COS_GATE, C)
-    np8, mom8 = lsd_fit.gate_moments_cuda(*args8)
+    np8, mom8 = lsd_fit.gate_moments_cuda(*args8, starts)
+    np8_again, mom8_again = lsd_fit.gate_moments_cuda(*args8, starts)
+    np8_built, mom8_built = lsd_fit.gate_moments_cuda(*args8)
     np8_k9 = lsd_fit.gate_pixels_cuda(slot, xs, ys, ang, pix, t8, True,
                                       lsd.COS_GATE, C)
     np8_p = lsd_fit.gate_pixels_plain(slot, xs, ys, ang, pix, t8, True,
@@ -913,18 +1020,24 @@ def check_lsd_kernels(angle, active, idx, mag_c, ang_c, tile, dev,
     # components with a flipped pixel have other sums: compare the rest
     clean = torch.ones(C + 1, dtype=torch.bool, device=dev)
     clean[slot_l[flip8]] = False
-    err8 = rel_err(mom8[clean[:C]], mom8_p[clean[:C]])
+    err8 = max(rel_err(mom8[clean[:C]], mom8_p[clean[:C]]),
+               rel_err(mom8_built[clean[:C]], mom8_p[clean[:C]]))
+    repeat8 = (torch.equal(np8, np8_again) and torch.equal(np8, np8_built)
+               and same_bits(mom8, mom8_again)
+               and same_bits(mom8, mom8_built))
     print(f"[{what}] K8 gate_moments: {int(np8.sum())} of {n} pixels kept, "
           f"{int(flip8.sum())} differ from the plain gate (limit "
           f"{1e-5 * n:.1f}), newpix equals K9's: "
           f"{torch.equal(np8, np8_k9)}, max rel err of the sums {err8:.3g} "
-          f"(limit 1e-6)", flush=True)
+          f"(limit 1e-6; run table given and built); two calls "
+          f"bit-identical: {repeat8}", flush=True)
     check(int(flip8.sum()) <= 1e-5 * n and torch.equal(np8, np8_k9)
           and err8 <= 1e-6, "K8 disagrees with its plain version")
+    check(repeat8, "K8 gives other bits in another call")
     rows.append(kernel_row(
         "K8 gate_moments", "lsd_fit.cu", "line3dpp_tpu/ops/lsd_fit.py:368",
         float((mom8 - mom8_p)[clean[:C]].abs().max()),
-        lambda: lsd_fit.gate_moments_cuda(*args8),
+        lambda: lsd_fit.gate_moments_cuda(*args8, starts),
         cuda_ms(lambda: lsd_fit.moments_plain(
             slot, xs, ys, mag, lsd_fit.gate_pixels_plain(
                 slot, xs, ys, ang, pix, t8, True, lsd.COS_GATE, C), C), 5),
@@ -1332,9 +1445,14 @@ def main() -> None:
 
     # ---- build (the union-find too, so the main path's times exclude g++)
     t0 = time.perf_counter()
+    sincos_build = sincos_library(start=True)
     lib = kernels.library_path()
     kernels.library()
     native = clustering._native_lib() is not None
+    if sincos_build is not None:
+        out, _ = sincos_build.communicate()
+        check(sincos_build.returncode == 0,
+              f"the sincosf check did not build: {out}")
     build_s = time.perf_counter() - t0
     with open(os.path.join(os.path.dirname(lib), "build.log")) as f:
         build_log = f.read()
@@ -1349,6 +1467,14 @@ def main() -> None:
         os.makedirs(opts.out, exist_ok=True)
         with open(os.path.join(opts.out, "k2_sass.txt"), "w") as f:
             f.write(sass_function(sass, "score_kernel") or "")
+    t0 = time.perf_counter()
+    n_bad, first_bad = sincos_differences(dev)
+    print(f"[K8] sincosf against sinf and cosf on all 2^32 float32 "
+          f"arguments: {n_bad} differ"
+          + (f" (the first {first_bad:#010x})" if n_bad else "")
+          + f", in {time.perf_counter() - t0:.2f} s", flush=True)
+    check(n_bad == 0, "sincosf and sinf/cosf differ: K8's gate may "
+                      "differ from K9's")
 
     # ---- each kernel against its plain version at main-path shapes
     views = load_views()
@@ -1452,7 +1578,7 @@ def main() -> None:
             *synthetic_stripes(STRIPE_ACTIVE, 0, dev), dev,
             f"stripes of {STRIPE_ROWS} rows, {STRIPE_ACTIVE} active")]
     torch.cuda.synchronize()
-    _, phases = images_to_lines(images, cams, gt, ref, dev)
+    default_launches, phases = images_to_lines(images, cams, gt, ref, dev)
     phases["render_s"] = render_s
     print("images -> lines phases: " + json.dumps(phases), flush=True)
 
@@ -1483,7 +1609,10 @@ def main() -> None:
         with open(os.path.join(opts.out, "build.log"), "w") as f:
             f.write(build_log)
     for r in rows:
+        # launches: the rescue path, which runs every kernel; also those of
+        # the default Config()'s detection (no K10)
         r["launches"] = launches[r["name"].split()[1]]
+        r["launches_default"] = default_launches[r["name"].split()[1]]
     print(json.dumps({"full_size": full}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi_line, flush=True)

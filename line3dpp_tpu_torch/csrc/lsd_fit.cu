@@ -15,23 +15,27 @@
 //
 // What bounds them on the H100: memory.  Each pass streams 4-6 planes of
 // 4 B per pixel (2.8 M pixels at 3072 x 2304 on real photos) and writes one
-// plane or a small table; the tables are L2-resident.  Design: one thread
-// per pixel, a warp reduces the runs it holds with a segmented shuffle scan
-// (equal slots are contiguous within a warp), and the last lane of each run
-// adds its run's total into the table with one atomic per run and warp (K7,
-// K8, K10; K11 reads whole runs instead, below).
+// plane or a small table; the tables are L2-resident.  K9 is one thread per
+// pixel; K10 one thread per pixel whose warp counts the runs it holds with
+// ballots and adds them with one integer atomic per run and warp; K7, K8
+// and K11 read whole component runs through the run table (below), with no
+// atomics and no init or output pass.
 //   - Sums (K7, K8): the float32 terms w, wx, wy, wx*x, wy*y, wx*y, pix of
-//     the JAX package are accumulated in float64 (double atomicAdd) and
-//     rounded to float32 at the end.  The sums of w x^2 reach ~1e13 at x ~
-//     2560 and the fit subtracts cx^2 from sxx / sw, so float32 atomics in
-//     a varying order would move theta from run to run; in float64 the
-//     result differs from the plain version's (float64 index_add) only in
-//     the last bit of the float32 result, where rounding sits on a tie.
+//     the JAX package are accumulated in float64 and rounded to float32 at
+//     the end.  The sums of w x^2 reach ~1e13 at x ~ 2560 and the fit
+//     subtracts cx^2 from sxx / sw, so float32 sums would move theta with
+//     the order; in float64 the result differs from the plain version's
+//     (float64 index_add) only in the last bit of the float32 result, where
+//     rounding sits on a tie.  The order is fixed by the list, so two calls
+//     give the same bits (fit_kernel).
 //   - Minima (K11): one pass over the component runs without atomics (see
 //     extents_kernel); exact, so bit-equal to the plain version.
-//   - The gate (K8, K9): one device function, the plain version's
-//     expression with __fmul_rn / __fadd_rn so nothing is contracted into
-//     an FMA; cosf / sinf are CUDA's full-precision functions.
+//   - The gate (K9): the plain version's expression with __fmul_rn /
+//     __fadd_rn so nothing is contracted into an FMA; cosf / sinf are
+//     CUDA's full-precision functions.  K8 evaluates the same expression
+//     on a row it reads once (gate_row), with sincosf, whose bits equal
+//     sinf's and cosf's for every float32 argument (chip_smoke.py checks
+//     all 2^32 on the card), so K8's newpix equals K9's.
 //   - Band counts (K10): the table row holds (ct, st, cx, cy, mid, width);
 //     every pixel evaluates s = 2 (w_proj - mid) and, for each of up to 16
 //     bands (lo_w, lo_c, hi_w, hi_c), lo_w width + lo_c <= s <= hi_w width +
@@ -75,40 +79,22 @@ __device__ __forceinline__ float gate_one(const float4* __restrict__ tab,
   return (pix != 0.f && fabsf(w) <= b.x && al >= cos_tol) ? 1.f : 0.f;
 }
 
-__device__ __forceinline__ void moment_terms(float x, float y, float mag,
-                                             float pix, double v[7]) {
-  const float w = __fmul_rn(mag, pix);
-  const float wx = __fmul_rn(w, x);
-  const float wy = __fmul_rn(w, y);
-  v[0] = w;
-  v[1] = wx;
-  v[2] = wy;
-  v[3] = __fmul_rn(wx, x);
-  v[4] = __fmul_rn(wy, y);
-  v[5] = __fmul_rn(wx, y);
-  v[6] = pix;
-}
-
-// Segmented inclusive scan over the warp's lanes: afterwards the last lane
-// of each run of equal keys holds the run's total, which it adds to
-// acc[key, :].  key < 0 marks a lane that contributes nothing.
-__device__ __forceinline__ void warp_run_add(int key, double v[7],
-                                             double* __restrict__ acc) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    const int k_up = __shfl_up_sync(kFull, key, d);
-#pragma unroll
-    for (int f = 0; f < 7; ++f) {
-      const double u = __shfl_up_sync(kFull, v[f], d);
-      if (lane >= d && k_up == key) v[f] += u;
-    }
-  }
-  const int k_dn = __shfl_down_sync(kFull, key, 1);
-  if (key >= 0 && (lane == 31 || k_dn != key)) {
-#pragma unroll
-    for (int f = 0; f < 7; ++f) atomicAdd(acc + (int64_t)key * 7 + f, v[f]);
-  }
+// gate_one's value for a pixel of a real component with table row (a, b),
+// for K8: the angle only where the band test passes, with sincosf (one
+// argument reduction for both)
+__device__ __forceinline__ float gate_row(float4 a, float4 b, float x,
+                                          float y, float ang, float pix,
+                                          float cos_tol) {
+  const float dxp = __fsub_rn(x, a.z);
+  const float dyp = __fsub_rn(y, a.w);
+  const float w = __fsub_rn(
+      __fadd_rn(__fmul_rn(-dxp, a.y), __fmul_rn(dyp, a.x)), b.y);
+  if (pix == 0.f || !(fabsf(w) <= b.x)) return 0.f;
+  float sn, cs;
+  sincosf(ang, &sn, &cs);
+  const float al =
+      fabsf(__fadd_rn(__fmul_rn(cs, a.x), __fmul_rn(sn, a.y)));
+  return al >= cos_tol ? 1.f : 0.f;
 }
 
 __device__ __forceinline__ int encode(float f) {
@@ -125,63 +111,6 @@ __device__ __forceinline__ float decode(int i) {
 #define FOR_WARP_CHUNKS(n)                                               \
   for (int64_t base = (int64_t)blockIdx.x * blockDim.x + (threadIdx.x & ~31); \
        base < (n); base += (int64_t)gridDim.x * blockDim.x)
-
-__global__ void moments_kernel(const int* __restrict__ slot,
-                               const float* __restrict__ xs,
-                               const float* __restrict__ ys,
-                               const float* __restrict__ mag,
-                               const float* __restrict__ pix, int64_t n, int C,
-                               double* __restrict__ acc) {
-  FOR_WARP_CHUNKS(n) {
-    const int64_t i = base + (threadIdx.x & 31);
-    int key = -1;
-    double v[7] = {0, 0, 0, 0, 0, 0, 0};
-    if (i < n) {
-      const int s = slot[i];
-      if (s >= 0 && s < C) {
-        key = s;
-        moment_terms(xs[i], ys[i], mag[i], pix[i], v);
-      }
-    }
-    warp_run_add(key, v, acc);
-  }
-}
-
-__global__ void gate_moments_kernel(
-    const int* __restrict__ slot, const float* __restrict__ xs,
-    const float* __restrict__ ys, const float* __restrict__ ang,
-    const float* __restrict__ mag, const float* __restrict__ pix,
-    const float4* __restrict__ tab, int64_t n, int C, bool dump_keep,
-    float cos_tol, float* __restrict__ newpix, double* __restrict__ acc) {
-  FOR_WARP_CHUNKS(n) {
-    const int64_t i = base + (threadIdx.x & 31);
-    int key = -1;
-    double v[7] = {0, 0, 0, 0, 0, 0, 0};
-    if (i < n) {
-      const int s = slot[i];
-      const float x = xs[i], y = ys[i];
-      const float np =
-          gate_one(tab, s, C, x, y, ang[i], pix[i], dump_keep, cos_tol);
-      newpix[i] = np;
-      if (s >= 0 && s < C) {
-        key = s;
-        moment_terms(x, y, mag[i], np, v);
-      }
-    }
-    warp_run_add(key, v, acc);
-  }
-}
-
-__global__ void moments_out(const double* __restrict__ acc, int C,
-                            float* __restrict__ out) {
-  const int64_t total = (int64_t)C * 8;
-  for (int64_t j = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; j < total;
-       j += (int64_t)gridDim.x * blockDim.x) {
-    const int64_t c = j / 8;
-    const int f = (int)(j % 8);
-    out[j] = f < 7 ? (float)acc[c * 7 + f] : 0.f;
-  }
-}
 
 __global__ void gate_kernel(const int* __restrict__ slot,
                             const float* __restrict__ xs,
@@ -585,46 +514,430 @@ __global__ void __launch_bounds__(THREADS, MINB) extents_kernel(
   }
 }
 
+// K7 moments and K8 gate_moments: one launch over the component runs, one
+// routine with and without K9's gate.  Each block owns a stretch of whole
+// tiles of T * 4 pixels (4 consecutive ones a thread) and the runs whose
+// heads lie in it.  It works through its tiles in turn while the next one
+// lands in shared memory (cp.async, each thread its own slots), so the
+// loads overlap the arithmetic.  A thread adds its pixels' terms run by run
+// into float64 registers and writes the row of a run that begins and ends
+// inside it; the runs crossing threads are joined by a segmented scan over
+// each warp's lanes, then across the warps and on from the tile before
+// (one barrier a tile), and the thread holding a run's last pixel writes
+// its row.  The run that began before the block's stretch is skipped (the
+// block of its head reads it).  The run going on past its end is read on to
+// the next component's start (starts[c + 1], n for the last): its tiles
+// land in the buffer after the block's own, each thread sums its pixels,
+// and one reduction finishes it.  Every sum is thus formed in an order that
+// the list and the number of blocks fix (as many as fit on the card at
+// once, at most one a tile): two calls give the same bits.  K8 gates a
+// pixel where it is summed (a dump pixel in its own thread) and writes its
+// newpix there, once for every pixel, with K9's test (gate_row on the row
+// of the thread's first component, read once; gate_one for the others).
+// The blocks past the stretches write the zero rows of the components with
+// no pixel.
+
+struct FitArgs {
+  const int* slot;
+  const float *xs, *ys, *ang, *mag, *pix;  // ang: K8 only
+  const float4* tab;                       // K8: the gate's tables
+  const int* starts;
+  float* newpix;                           // K8 only
+  float* out;
+  int64_t n, tiles, blocks;
+  int C, vec, dump_keep;
+  float cos_tol;
+};
+
+// the last run of a stretch of pixels: its component (-1: none), whether
+// it fills the stretch, its sums
+struct RunSum {
+  int k, whole;
+  double m[7];
+};
+
+__device__ __forceinline__ bool real(int k, int C) {
+  return (unsigned)k < (unsigned)C;
+}
+
+// b = a (earlier pixels) followed by b
+__device__ __forceinline__ void join(const RunSum& a, RunSum& b) {
+  const bool same = b.whole && a.k == b.k;
+  if (same) {
+#pragma unroll
+    for (int f = 0; f < 7; ++f) b.m[f] = a.m[f] + b.m[f];
+  }
+  b.whole = same && a.whole;
+}
+
+// r joined on to the last runs of the warp's earlier lanes (inclusive
+// segmented scan), one sum at a time
+__device__ __forceinline__ void warp_join(RunSum& r, int lane) {
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int ok = __shfl_up_sync(kFull, r.k, d);
+    const int ow = __shfl_up_sync(kFull, r.whole, d);
+    const bool same = lane >= d && r.whole && ok == r.k;
+#pragma unroll
+    for (int f = 0; f < 7; ++f) {
+      const double om = __shfl_up_sync(kFull, r.m[f], d);
+      if (same) r.m[f] = om + r.m[f];
+    }
+    if (lane >= d) r.whole = same && ow;
+  }
+}
+
+__device__ __forceinline__ RunSum run_shfl_up(const RunSum& r, int d) {
+  RunSum o;
+  o.k = __shfl_up_sync(kFull, r.k, d);
+  o.whole = __shfl_up_sync(kFull, r.whole, d);
+#pragma unroll
+  for (int f = 0; f < 7; ++f) o.m[f] = __shfl_up_sync(kFull, r.m[f], d);
+  return o;
+}
+
+// the float32 terms of lsd_fit._moment_terms, added in float64
+__device__ __forceinline__ void add_terms(double m[7], float x, float y,
+                                          float mag, float p) {
+  const float w = __fmul_rn(mag, p);
+  const float wx = __fmul_rn(w, x), wy = __fmul_rn(w, y);
+  m[0] += w;
+  m[1] += wx;
+  m[2] += wy;
+  m[3] += __fmul_rn(wx, x);
+  m[4] += __fmul_rn(wy, y);
+  m[5] += __fmul_rn(wx, y);
+  m[6] += p;
+}
+
+__device__ __forceinline__ void store_row(float* out, int k,
+                                          const double m[7]) {
+  float4* o = reinterpret_cast<float4*>(out) + 2 * (int64_t)k;
+  o[0] = make_float4((float)m[0], (float)m[1], (float)m[2], (float)m[3]);
+  o[1] = make_float4((float)m[4], (float)m[5], (float)m[6], 0.f);
+}
+
+// 4 pixels of every plane: slot, x, y, mag, pix, ang
+struct Pixels {
+  int k[4];
+  float x[4], y[4], mag[4], p[4], ang[4];
+};
+
+// this thread's 4 pixels at i0 (none at or past end) copied into its slots
+// of the shared buffer, without waiting
+template <bool GATE>
+__device__ __forceinline__ void stage_pixels(const FitArgs& a, int64_t i0,
+                                             int64_t end, float4* buf,
+                                             int stride) {
+  const void* planes[6] = {a.slot, a.xs, a.ys, a.mag, a.pix, a.ang};
+#pragma unroll
+  for (int q = 0; q < (GATE ? 6 : 5); ++q) {
+    const char* src = static_cast<const char*>(planes[q]) + 4 * i0;
+    float4* dst = buf + q * stride;
+    if (a.vec && i0 + 4 <= end) {
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                       (unsigned)__cvta_generic_to_shared(dst)),
+                   "l"(src));
+    } else {
+      for (int j = 0; j < 4 && i0 + j < end; ++j)
+        asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                         (unsigned)__cvta_generic_to_shared(
+                             reinterpret_cast<float*>(dst) + j)),
+                     "l"(src + 4 * j));
+    }
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <bool GATE>
+__device__ __forceinline__ void unstage_pixels(const float4* buf, int stride,
+                                               Pixels& v) {
+  const int4 k = reinterpret_cast<const int4*>(buf)[0];
+  const float4 x = buf[stride], y = buf[2 * stride], mg = buf[3 * stride],
+               p = buf[4 * stride];
+  v.k[0] = k.x, v.k[1] = k.y, v.k[2] = k.z, v.k[3] = k.w;
+  v.x[0] = x.x, v.x[1] = x.y, v.x[2] = x.z, v.x[3] = x.w;
+  v.y[0] = y.x, v.y[1] = y.y, v.y[2] = y.z, v.y[3] = y.w;
+  v.mag[0] = mg.x, v.mag[1] = mg.y, v.mag[2] = mg.z, v.mag[3] = mg.w;
+  v.p[0] = p.x, v.p[1] = p.y, v.p[2] = p.z, v.p[3] = p.w;
+  if (GATE) {
+    const float4 an = buf[5 * stride];
+    v.ang[0] = an.x, v.ang[1] = an.y, v.ang[2] = an.z, v.ang[3] = an.w;
+  }
+}
+
+// pixel j's weight: its pix, or with the gate the gated pix; (ra, rb) is
+// the table row of component kr
+template <bool GATE>
+__device__ __forceinline__ float weight(const FitArgs& a, const Pixels& v,
+                                        int j, int kr, float4 ra, float4 rb) {
+  if (!GATE) return v.p[j];
+  if (v.k[j] == kr)
+    return gate_row(ra, rb, v.x[j], v.y[j], v.ang[j], v.p[j], a.cos_tol);
+  return gate_one(a.tab, v.k[j], a.C, v.x[j], v.y[j], v.ang[j], v.p[j],
+                  a.dump_keep != 0, a.cos_tol);
+}
+
+// T threads a block, at least MINB blocks an SM, S tiles in the shared
+// buffer (S - 1 landing while one is worked on); the dynamic shared memory
+// holds S tiles of 5 planes (6 with the gate)
+template <bool GATE, int T, int MINB, int S>
+__global__ void __launch_bounds__(T, MINB) fit_kernel(const FitArgs a) {
+  constexpr int kWarps = T / 32, kPlanes = GATE ? 6 : 5;
+  constexpr int64_t kTile = 4 * T;
+  extern __shared__ float4 s_buf[];   // [S][planes][T]
+  __shared__ RunSum s_run[2][kWarps], s_carry[2];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, C = a.C;
+  const int64_t n = a.n;
+
+  if (blockIdx.x >= a.blocks) {
+    // components with no pixel
+    const int64_t c = (blockIdx.x - a.blocks) * T + tid;
+    if (c < C && a.starts[c] >= (c + 1 < C ? a.starts[c + 1] : n)) {
+      const double zero[7] = {0, 0, 0, 0, 0, 0, 0};
+      store_row(a.out, (int)c, zero);
+    }
+    return;
+  }
+  // the block's tiles [t0, t1), pixels [c0, c1)
+  const int64_t t0 = blockIdx.x * a.tiles / a.blocks;
+  const int64_t t1 = (blockIdx.x + 1) * a.tiles / a.blocks;
+  const int64_t c0 = t0 * kTile, c1 = t1 * kTile < n ? t1 * kTile : n;
+#pragma unroll
+  for (int q = 0; q < S - 1; ++q)
+    stage_pixels<GATE>(a, c0 + q * kTile + 4 * tid, n,
+                       s_buf + q * kPlanes * T + tid, T);
+  // the run that began before the block's pixels (the block of its head
+  // reads it), and the one going on past them, which the block reads on to
+  // the next component's start: pixels [c1, c2), the tiles after its own,
+  // which land in the same buffer as they do
+  const int head = a.slot[c0], last = a.slot[c1 - 1];
+  const int skip =
+      (c0 > 0 && real(head, C) && a.slot[c0 - 1] == head) ? head : -1;
+  const int after = c1 < n ? a.slot[c1] : -1;
+  const int cross =
+      (real(last, C) && last != skip && after == last) ? last : -1;
+  const int64_t c2 = cross < 0            ? c1
+                     : cross + 1 < C ? (int64_t)a.starts[cross + 1]
+                                     : n;
+  if (tid == 0) s_carry[0] = RunSum{-1, 0, {0, 0, 0, 0, 0, 0, 0}};
+
+  RunSum r;
+  for (int64_t t = t0; t < t1; ++t) {
+    const int u = (int)(t - t0), cur = u & 1;
+    const int64_t b0 = t * kTile, i0 = b0 + 4 * tid, e = i0 + 4;
+    const int64_t hi = b0 + kTile < c1 ? b0 + kTile : c1;
+    // the tile S - 1 ahead lands while this one is worked on
+    stage_pixels<GATE>(a, i0 + (S - 1) * kTile, c2,
+                       s_buf + (u + S - 1) % S * kPlanes * T + tid, T);
+    // the first pixel after this thread's (a lane's neighbour holds it)
+    const int after_lane = lane == 31 && e < n ? a.slot[e] : -1;
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(S - 1));
+    Pixels v;
+    unstage_pixels<GATE>(s_buf + u % S * kPlanes * T + tid, T, v);
+    const int kr = real(v.k[0], C) ? v.k[0] : -1;
+    float4 ra{}, rb{};
+    if (GATE && kr >= 0) {
+      ra = a.tab[2 * (int64_t)kr];
+      rb = a.tab[2 * (int64_t)kr + 1];
+    }
+    const int down = __shfl_down_sync(kFull, v.k[0], 1);
+    const int next = lane < 31 ? (e < hi ? down : -1) : after_lane;
+
+    // the thread's pixels run by run: mf the first run's sums, r the last's
+    r = RunSum{-1, 1, {0, 0, 0, 0, 0, 0, 0}};
+    int kf = -1, mine = 0;
+    double mf[7] = {0, 0, 0, 0, 0, 0, 0};
+    float np[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      // the block's pixels: all but those of the skipped run
+      const bool own = i0 + j < hi && v.k[j] != skip;
+      int k = -1;
+      np[j] = 0.f;
+      if (own) {
+        mine |= 1 << j;
+        np[j] = weight<GATE>(a, v, j, kr, ra, rb);
+        if (real(v.k[j], C)) k = v.k[j];
+      }
+      if (j == 0) {
+        kf = r.k = k;
+      } else if (k != r.k) {
+        if (r.whole) {
+#pragma unroll
+          for (int f = 0; f < 7; ++f) mf[f] = r.m[f];
+          r.whole = 0;
+        } else if (r.k >= 0) {
+          store_row(a.out, r.k, r.m);  // began and ended in this thread
+        }
+        r.k = k;
+#pragma unroll
+        for (int f = 0; f < 7; ++f) r.m[f] = 0;
+      }
+      if (k >= 0) add_terms(r.m, v.x[j], v.y[j], v.mag[j], np[j]);
+    }
+    if (GATE) {
+      if (a.vec && mine == 15) {
+        reinterpret_cast<float4*>(a.newpix)[i0 / 4] =
+            make_float4(np[0], np[1], np[2], np[3]);
+      } else {
+        for (int j = 0; j < 4; ++j)
+          if (mine >> j & 1) a.newpix[i0 + j] = np[j];
+      }
+    }
+
+    // join the last runs over the warp's lanes; acc: the stretch from the
+    // warp's first pixel to this thread's first run (through the thread
+    // when it holds one run), joined on to the earlier warps and tiles
+    const int single = r.whole;
+    warp_join(r, lane);
+    RunSum acc = run_shfl_up(r, 1);
+    if (lane == 31) s_run[cur][warp] = r;
+    __syncthreads();
+    if (single) {
+      acc = r;
+    } else if (lane == 0) {
+      acc = RunSum{kf, 1, {0, 0, 0, 0, 0, 0, 0}};
+    }
+    for (int w = warp - 1; w >= 0 && acc.whole; --w) join(s_run[cur][w], acc);
+    if (acc.whole) join(s_carry[cur], acc);
+    if (single) {
+      r = acc;
+    } else if (kf >= 0) {
+      if (acc.k == kf) {
+#pragma unroll
+        for (int f = 0; f < 7; ++f) mf[f] = acc.m[f] + mf[f];
+      }
+      store_row(a.out, kf, mf);  // ended in this thread
+    }
+    const bool goes_on = r.k >= 0 && next == r.k;
+    if (r.k >= 0 && !goes_on) store_row(a.out, r.k, r.m);
+    // the run reaching into the next tile
+    if (tid == T - 1)
+      s_carry[cur ^ 1] = goes_on ? r : RunSum{-1, 0, {0, 0, 0, 0, 0, 0, 0}};
+  }
+
+  if (cross >= 0) {
+    // the run going on past the block's tiles, streamed through the same
+    // buffer (each thread its own slots), each thread summing its pixels;
+    // one reduction of the shares, in a fixed order, onto the run's sums
+    // in the block's tiles
+    float4 ra{}, rb{};
+    if (GATE) {
+      ra = a.tab[2 * (int64_t)cross];
+      rb = a.tab[2 * (int64_t)cross + 1];
+    }
+    double m[7] = {0, 0, 0, 0, 0, 0, 0};
+    const int u1 = (int)(t1 - t0), u2 = (int)((c2 + kTile - 1) / kTile - t0);
+    for (int u = u1; u < u2; ++u) {
+      const int64_t i0 = c0 + u * kTile + 4 * tid;
+      stage_pixels<GATE>(a, i0 + (S - 1) * kTile, c2,
+                         s_buf + (u + S - 1) % S * kPlanes * T + tid, T);
+      asm volatile("cp.async.wait_group %0;\n" ::"n"(S - 1));
+      Pixels v;
+      unstage_pixels<GATE>(s_buf + u % S * kPlanes * T + tid, T, v);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (i0 + j < c2 && v.k[j] == cross) {
+          const float p = weight<GATE>(a, v, j, cross, ra, rb);
+          if (GATE) a.newpix[i0 + j] = p;
+          add_terms(m, v.x[j], v.y[j], v.mag[j], p);
+        }
+      }
+    }
+    asm volatile("cp.async.wait_group 0;\n" ::);
+    if (c1 + (int64_t)warp * 128 < c2) {
+#pragma unroll
+      for (int d = 16; d > 0; d >>= 1) {
+#pragma unroll
+        for (int f = 0; f < 7; ++f) m[f] += __shfl_xor_sync(kFull, m[f], d);
+      }
+    }
+    __syncthreads();  // s_run is read
+    if (lane == 0) {
+#pragma unroll
+      for (int f = 0; f < 7; ++f) s_run[0][warp].m[f] = m[f];
+    }
+    __syncthreads();
+    if (tid == T - 1) {  // holds the run's last pixel in the block's tiles
+      for (int w = 0; w < kWarps; ++w) {
+#pragma unroll
+        for (int f = 0; f < 7; ++f) r.m[f] += s_run[0][w].m[f];
+      }
+      store_row(a.out, cross, r.m);
+    }
+  }
+  asm volatile("cp.async.wait_group 0;\n" ::);
+}
+
+template <bool GATE, int T, int MINB, int S>
+int launch_fit_layout(FitArgs a, cudaStream_t stream) {
+  constexpr int64_t tile = 4 * T;
+  a.vec = ((reinterpret_cast<uintptr_t>(a.slot) |
+            reinterpret_cast<uintptr_t>(a.xs) |
+            reinterpret_cast<uintptr_t>(a.ys) |
+            reinterpret_cast<uintptr_t>(a.ang) |
+            reinterpret_cast<uintptr_t>(a.mag) |
+            reinterpret_cast<uintptr_t>(a.pix) |
+            reinterpret_cast<uintptr_t>(a.newpix)) & 15) == 0;
+  const int smem = S * (GATE ? 6 : 5) * T * (int)sizeof(float4);
+  static int per_sm = -1, sms = 0;
+  if (per_sm < 0) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(fit_kernel<GATE, T, MINB, S>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 smem);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, fit_kernel<GATE, T, MINB, S>, T, smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  a.tiles = (a.n + tile - 1) / tile;
+  a.blocks = a.tiles < (int64_t)per_sm * sms ? a.tiles : (int64_t)per_sm * sms;
+  const int64_t grid = a.blocks + (a.C + T - 1) / T;
+  if (grid > 0)
+    fit_kernel<GATE, T, MINB, S><<<(unsigned)grid, T, smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// T threads a block, as lsd_fit.fit_threads chooses: 512 (one block an SM)
+// for long runs, 256 (3 blocks an SM) for short ones
+template <bool GATE>
+int launch_fit(FitArgs a, int threads, cudaStream_t stream) {
+  if (threads == 512) return launch_fit_layout<GATE, 512, 1, 2>(a, stream);
+  if (threads == 256) return launch_fit_layout<GATE, 256, 3, 2>(a, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 extern "C" int l3d_moments(const int* slot, const float* xs, const float* ys,
-                           const float* mag, const float* pix, int n, int C,
-                           double* scratch, float* out, void* stream) {
+                           const float* mag, const float* pix,
+                           const int* starts, int n, int C, int threads,
+                           float* out, void* stream) {
   if (n < 0 || C < 0) return (int)cudaErrorInvalidValue;
   if (C == 0) return 0;
-  cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t err =
-      cudaMemsetAsync(scratch, 0, sizeof(double) * 7 * (size_t)C, s);
-  if (err != cudaSuccess) return (int)err;
-  if (n > 0)
-    moments_kernel<<<blocks_for(n), kThreads, 0, s>>>(slot, xs, ys, mag, pix,
-                                                      n, C, scratch);
-  moments_out<<<blocks_for((int64_t)C * 8), kThreads, 0, s>>>(scratch, C,
-                                                               out);
-  return (int)cudaGetLastError();
+  return launch_fit<false>({slot, xs, ys, nullptr, mag, pix, nullptr, starts,
+                            nullptr, out, n, 0, 0, C, 0, 0, 0.f},
+                           threads, (cudaStream_t)stream);
 }
 
 extern "C" int l3d_gate_moments(const int* slot, const float* xs,
                                 const float* ys, const float* ang,
                                 const float* mag, const float* pix,
-                                const float* tables, int n, int C,
-                                int dump_keep, float cos_tol, float* newpix,
-                                double* scratch, float* out, void* stream) {
+                                const float* tables, const int* starts, int n,
+                                int C, int threads, int dump_keep,
+                                float cos_tol, float* newpix, float* out,
+                                void* stream) {
   if (n < 0 || C < 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (C > 0) {
-    cudaError_t err =
-        cudaMemsetAsync(scratch, 0, sizeof(double) * 7 * (size_t)C, s);
-    if (err != cudaSuccess) return (int)err;
-  }
-  if (n > 0)
-    gate_moments_kernel<<<blocks_for(n), kThreads, 0, s>>>(
-        slot, xs, ys, ang, mag, pix, reinterpret_cast<const float4*>(tables),
-        n, C, dump_keep != 0, cos_tol, newpix, scratch);
-  if (C > 0)
-    moments_out<<<blocks_for((int64_t)C * 8), kThreads, 0, s>>>(scratch, C,
-                                                                 out);
-  return (int)cudaGetLastError();
+  return launch_fit<true>({slot, xs, ys, ang, mag, pix,
+                           reinterpret_cast<const float4*>(tables), starts,
+                           newpix, out, n, 0, 0, C, 0, dump_keep, cos_tol},
+                          threads, (cudaStream_t)stream);
 }
 
 extern "C" int l3d_gate_pixels(const int* slot, const float* xs,
@@ -684,12 +997,6 @@ extern "C" int l3d_extents(const int* slot, const float* xs, const float* ys,
                      reinterpret_cast<uintptr_t>(ys) |
                      reinterpret_cast<uintptr_t>(pix)) & 15) == 0;
   cudaStream_t s = (cudaStream_t)stream;
-#ifdef L3D_K11_THREADS
-  // one fixed layout, for the sweep of tests/measure_torch_k2_k11.py
-  return launch_extents<L3D_K11_THREADS, L3D_K11_I, L3D_K11_OVER,
-                        L3D_K11_MINB>(slot, xs, ys, pix, tables, starts, n,
-                                      C, vec, out, s);
-#endif
   // components of 512 pixels and more on average (the facade's edges, of
   // thousands): wider blocks read the long runs in fewer rounds; else
   // (real photos' round 1, tens of pixels) narrow blocks with 64 pixels

@@ -57,11 +57,11 @@ _SIGNATURES = {
     "l3d_apply_merge_dense": [_P] * 2 + [_L] + [_P] + [_P],
     # src idx, n, out, stream
     "l3d_gather_labels": [_P] * 2 + [_L] + [_P] + [_P],
-    # slot xs ys mag pix, n C, scratch out, stream
-    "l3d_moments": [_P] * 5 + [_I] * 2 + [_P] * 2 + [_P],
-    # slot xs ys ang mag pix tables, n C dump_keep, cos_tol,
-    # newpix scratch out, stream
-    "l3d_gate_moments": [_P] * 7 + [_I] * 3 + [_F] + [_P] * 3 + [_P],
+    # slot xs ys mag pix starts, n C threads, out, stream
+    "l3d_moments": [_P] * 6 + [_I] * 3 + [_P] + [_P],
+    # slot xs ys ang mag pix tables starts, n C threads dump_keep, cos_tol,
+    # newpix out, stream
+    "l3d_gate_moments": [_P] * 8 + [_I] * 4 + [_F] + [_P] * 2 + [_P],
     # slot xs ys ang pix tables, n C dump_keep, cos_tol, newpix, stream
     "l3d_gate_pixels": [_P] * 6 + [_I] * 3 + [_F] + [_P] + [_P],
     # slot xs ys pix tables bands, n C B, scratch out, stream

@@ -376,8 +376,9 @@ def _pixel_list(angle, active, idx, mag_c, ang_c, tol: float,
     C = int(new_run.sum())
     return dict(
         n=n, C=C,
-        # the run table of kernel K11: dlab never decreases and first
-        # reaches c at component c's head (one launch, no host sync)
+        # the run table of kernels K7, K8 and K11: dlab never decreases
+        # and first reaches c at component c's head (one launch, no host
+        # sync)
         starts=torch.searchsorted(dlab, pos[:C], out_int32=True),
         # component slot per pixel; pixels of short runs go to dump slot C
         slot=torch.where(big_run, dlab, C).to(torch.int32),
@@ -553,7 +554,8 @@ def _lsd_round(angle, active, idx, mag_c, ang_c, tol: float, consume: bool,
                            var_w)
 
     def refit(pix):
-        return fit(lsd_fit.moments(slot, xs, ys, mag_s, pix, C), pix)
+        return fit(lsd_fit.moments(slot, xs, ys, mag_s, pix, C,
+                                   pl["starts"]), pix)
 
     def gated_pix(f, gate, pix, dump_keep, center=None, cos_tol=COS_GATE):
         return lsd_fit.gate_pixels(slot, xs, ys, ang_s, pix,
@@ -603,7 +605,7 @@ def _lsd_round(angle, active, idx, mag_c, ang_c, tol: float, consume: bool,
         else:
             pix, mom = lsd_fit.gate_moments(slot, xs, ys, ang_s, mag_s, pix,
                                             _with_gate(f, gate), True,
-                                            COS_GATE, C)
+                                            COS_GATE, C, pl["starts"])
             f = fit(mom, pix)
 
     # NFA a-contrario validation: (HW)^{5/2} tests, p = ANG_TH / 180

@@ -29,7 +29,10 @@ Each wrapper launches its CUDA kernel (``csrc/lsd_fit.cu``) for CUDA tensors
 and runs its plain torch version for CPU tensors.  The moment sums are
 accumulated in float64 by both versions (the product terms are float32, as
 in the JAX package), so the two differ only in the last bit of the float32
-result; the extents, the gate and the band counts are exact.
+result; the extents, the gate and the band counts are exact.  K7, K8 and
+K11 read whole component runs through the run table ``starts``
+(:func:`run_starts`); :func:`moments_split` is K7's and K8's split of the
+work, in torch.
 """
 
 from __future__ import annotations
@@ -42,6 +45,12 @@ from . import kernels
 
 BIG = 1e9
 TABLE_COLS = 8
+# the layouts of kernels K7 and K8: consecutive pixels a thread (fixed by
+# the kernel's 16-byte loads), and the threads a block that fit_threads
+# chooses and the kernel's launcher takes (csrc/lsd_fit.cu launch_fit)
+FIT_ITEMS = 4
+FIT_THREADS = 256
+FIT_THREADS_LONG = 512
 MAX_BANDS = 16
 # the symmetric width cuts 2 |w_proj - mid| <= width - 0.5 (b + 1)
 SYM_BANDS = tuple((-1.0, 0.5 * (b + 1), 1.0, -0.5 * (b + 1))
@@ -131,15 +140,101 @@ def run_starts(slot: torch.Tensor, C: int) -> torch.Tensor:
 
 def check_runs(slot: torch.Tensor, C: int) -> None:
     """Raise ``ValueError`` unless each real component's pixels (slot in
-    ``[0, C)``) lie in one contiguous run, as kernel K11 needs; the
-    detector's pixel list is so by construction.  One host sync."""
+    ``[0, C)``) lie in one contiguous run, as kernels K7, K8 and K11 need;
+    the detector's pixel list is so by construction.  One host sync."""
     head = (slot >= 0) & (slot < C)
     head[1:] &= slot[1:] != slot[:-1]
     runs = torch.bincount(slot[head].long(), minlength=C)
     if bool((runs > 1).any()):
         c = int(torch.nonzero(runs > 1)[0, 0])
-        raise ValueError(f"kernel K11 needs each component's pixels in one "
-                         f"run: component {c} has {int(runs[c])} runs")
+        raise ValueError(f"kernels K7, K8 and K11 need each component's "
+                         f"pixels in one run: component {c} has "
+                         f"{int(runs[c])} runs")
+
+
+def fit_threads(n: int, C: int) -> int:
+    """The threads a block of kernels K7 and K8 for ``n`` pixels and ``C``
+    components, which their wrappers pass to the kernels.  Where components
+    average 512 pixels or more (the facade's edges, of thousands), 512
+    threads read the runs going on past a block's tiles in half the rounds;
+    else (real photos' round 1, tens of pixels) 256 threads, 3 blocks an
+    SM.  On an H100 80GB HBM3 at 700 W, in turns by
+    ``tests/measure_torch_k7_k8.py --layouts``: K8 11.7 against 13.5 µs on
+    the facade, K7 32.9 against 36.1 µs at 57% active."""
+    return FIT_THREADS_LONG if n >= 512 * C else FIT_THREADS
+
+
+def moments_split(slot: torch.Tensor, C: int, starts=None,
+                  threads=None, blocks=None) -> dict:
+    """The split of the work in kernels K7 and K8 (``fit_kernel`` in
+    ``csrc/lsd_fit.cu``) over a slot list whose components are runs.
+
+    The list is cut into tiles of ``threads * FIT_ITEMS`` pixels
+    (``threads``: :func:`fit_threads` when None), ``FIT_ITEMS`` consecutive
+    ones a thread.  Each of ``blocks`` blocks (the kernel's launcher takes
+    as many as fit on the card at once; None: one a tile) owns a stretch of
+    whole tiles and the runs whose heads lie in it.  A block skips the run
+    that began before its stretch, and reads the run going on past the
+    stretch's end on to the next component's start, in the tiles after the
+    stretch, each pixel in the thread that its place in its tile gives.
+    The thread holding a run's last pixel writes the run's row.  K8 gates a
+    pixel (and writes its ``newpix``) where it is summed, a dump pixel in
+    its own thread.
+
+    Returns, per pixel: ``sums`` (how often it is added to its component's
+    sums), ``block`` and ``thread`` (the block and thread that add it, -1
+    for none), ``rest`` (added while its block reads past its stretch) and
+    ``gates`` (how often K8 gates it); per component: ``writes`` (how often
+    its row is written) and ``writer`` (the block whose thread writes it,
+    -1 for the blocks past the stretches, which write the zero rows of the
+    components with no pixel)."""
+    slot = slot.long().cpu()
+    n = slot.numel()
+    threads = fit_threads(n, C) if threads is None else threads
+    span = threads * FIT_ITEMS
+    if starts is None:
+        starts = run_starts(slot, C)
+    nxt = torch.cat([starts.long().cpu(), torch.tensor([n])])
+    tiles = -(-n // span)
+    blocks = tiles if blocks is None else min(blocks, tiles)
+    real = (slot >= 0) & (slot < C)
+    pos = torch.arange(n)
+    # each block's stretch [c0, c1), the run that began before it and the
+    # one going on past it
+    b = torch.arange(blocks)
+    c0 = b * tiles // blocks * span
+    c1 = ((b + 1) * tiles // blocks * span).clamp(max=n)
+    block_of = torch.searchsorted(c1, pos, right=True)
+    head, last = slot[c0], slot[c1 - 1]
+    skip = torch.where((c0 > 0) & real[c0]
+                       & (slot[(c0 - 1).clamp(min=0)] == head), head, -1)
+    after = torch.where(c1 < n, slot[c1.clamp(max=max(n - 1, 0))], -1)
+    cross = torch.where(real[c1 - 1] & (last != skip) & (after == last),
+                        last, -1)
+    mine = slot != skip[block_of]
+    summed = mine & real
+    sums, gates = summed.long(), mine.long()
+    block = torch.where(summed, block_of, -1)
+    thread = torch.where(summed, pos % span // FIT_ITEMS, -1)
+    rest = torch.zeros(n, dtype=torch.bool)
+    for t in torch.nonzero(cross >= 0)[:, 0].tolist():
+        c, lo = int(cross[t]), int(c1[t])
+        q = torch.arange(lo, int(nxt[c + 1]))
+        q = q[slot[q] == c]
+        sums[q] += 1
+        gates[q] += 1
+        block[q], thread[q] = t, q % span // FIT_ITEMS
+        rest[q] = True
+    # a run's last pixel: its row is written there, by the block that
+    # added it
+    last_px = (sums > 0) & real
+    last_px[:-1] &= slot[1:] != slot[:-1]
+    writes = torch.bincount(slot[last_px], minlength=C)[:C]
+    writer = torch.full((C,), -1, dtype=torch.long)
+    writer[slot[last_px]] = block[last_px]
+    writes += (starts.long().cpu() >= nxt[1:]).long()
+    return dict(sums=sums, block=block, thread=thread, rest=rest,
+                gates=gates, writes=writes, writer=writer)
 
 
 def extents_plain(slot, xs, ys, pix, tables, C: int,
@@ -177,31 +272,46 @@ def _check_pixels(C: int, tables=None, **planes) -> tuple[int, torch.device]:
     return n, dev
 
 
-def moments_cuda(slot, xs, ys, mag, pix, C: int) -> torch.Tensor:
-    """Kernel K7."""
+def _run_table(slot, C: int, starts, dev) -> torch.Tensor:
+    """``starts``, checked, or when it is None the table built from
+    ``slot`` after :func:`check_runs` has found each component in one
+    run."""
+    if starts is None:
+        check_runs(slot, C)
+        starts = run_starts(slot, C)
+    kernels.check("starts", starts, torch.int32, (C,), dev)
+    return starts
+
+
+def moments_cuda(slot, xs, ys, mag, pix, C: int,
+                 starts=None) -> torch.Tensor:
+    """Kernel K7 over the component runs (``starts`` as for
+    :func:`extents_cuda`)."""
     n, dev = _check_pixels(C, slot=slot, xs=xs, ys=ys, mag=mag, pix=pix)
+    starts = _run_table(slot, C, starts, dev)
     out = torch.empty((C, TABLE_COLS), dtype=torch.float32, device=dev)
-    scratch = torch.empty((C, 7), dtype=torch.float64, device=dev)
     p = kernels.ptr
-    kernels.launch("l3d_moments", p(slot), p(xs), p(ys), p(mag), p(pix), n,
-                   C, p(scratch), p(out), kernels.stream(dev))
+    kernels.launch("l3d_moments", p(slot), p(xs), p(ys), p(mag), p(pix),
+                   p(starts), n, C, fit_threads(n, C), p(out),
+                   kernels.stream(dev))
     kernels.LAUNCHES["moments"] += 1
     return out
 
 
 def gate_moments_cuda(slot, xs, ys, ang, mag, pix, tables, dump_keep: bool,
-                      cos_tol: float, C: int):
-    """Kernel K8."""
+                      cos_tol: float, C: int, starts=None):
+    """Kernel K8 over the component runs (``starts`` as for
+    :func:`extents_cuda`)."""
     n, dev = _check_pixels(C, tables, slot=slot, xs=xs, ys=ys, ang=ang,
                            mag=mag, pix=pix)
+    starts = _run_table(slot, C, starts, dev)
     newpix = torch.empty((n,), dtype=torch.float32, device=dev)
     out = torch.empty((C, TABLE_COLS), dtype=torch.float32, device=dev)
-    scratch = torch.empty((C, 7), dtype=torch.float64, device=dev)
     p = kernels.ptr
     kernels.launch("l3d_gate_moments", p(slot), p(xs), p(ys), p(ang), p(mag),
-                   p(pix), p(tables), n, C, int(bool(dump_keep)),
-                   ctypes.c_float(cos_tol), p(newpix), p(scratch), p(out),
-                   kernels.stream(dev))
+                   p(pix), p(tables), p(starts), n, C, fit_threads(n, C),
+                   int(bool(dump_keep)), ctypes.c_float(cos_tol), p(newpix),
+                   p(out), kernels.stream(dev))
     kernels.LAUNCHES["gate_moments"] += 1
     return newpix, out
 
@@ -243,10 +353,7 @@ def extents_cuda(slot, xs, ys, pix, tables, C: int,
     as in the detector's list; when ``starts`` is not given, the wrapper
     checks that (:func:`check_runs`) and builds the table from ``slot``."""
     n, dev = _check_pixels(C, tables, slot=slot, xs=xs, ys=ys, pix=pix)
-    if starts is None:
-        check_runs(slot, C)
-        starts = run_starts(slot, C)
-    kernels.check("starts", starts, torch.int32, (C,), dev)
+    starts = _run_table(slot, C, starts, dev)
     out = torch.empty((C, 4), dtype=torch.float32, device=dev)
     p = kernels.ptr
     kernels.launch("l3d_extents", p(slot), p(xs), p(ys), p(pix), p(tables),
@@ -259,9 +366,10 @@ def extents_cuda(slot, xs, ys, pix, tables, C: int,
 # the entry points: kernel for CUDA tensors, plain version for CPU tensors
 # ---------------------------------------------------------------------------
 
-def moments(slot, xs, ys, mag, pix, C: int) -> torch.Tensor:
+def moments(slot, xs, ys, mag, pix, C: int, starts=None) -> torch.Tensor:
+    """``starts``: the run table, as for :func:`extents`."""
     if slot.is_cuda:
-        return moments_cuda(slot, xs, ys, mag, pix, C)
+        return moments_cuda(slot, xs, ys, mag, pix, C, starts)
     return moments_plain(slot, xs, ys, mag, pix, C)
 
 
@@ -275,12 +383,12 @@ def gate_pixels(slot, xs, ys, ang, pix, tables, dump_keep: bool,
 
 
 def gate_moments(slot, xs, ys, ang, mag, pix, tables, dump_keep: bool,
-                 cos_tol: float, C: int):
+                 cos_tol: float, C: int, starts=None):
     """``(newpix, moments)``: :func:`gate_pixels`, then :func:`moments` of
-    the gated pixels."""
+    the gated pixels; ``starts`` as for :func:`extents`."""
     if slot.is_cuda:
         return gate_moments_cuda(slot, xs, ys, ang, mag, pix, tables,
-                                 dump_keep, cos_tol, C)
+                                 dump_keep, cos_tol, C, starts)
     newpix = gate_pixels_plain(slot, xs, ys, ang, pix, tables, dump_keep,
                                cos_tol, C)
     return newpix, moments_plain(slot, xs, ys, mag, newpix, C)

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import glob
 import os
+import re
 
 import numpy as np
 
@@ -25,24 +26,69 @@ def _path(cache_dir: str, cam_id: int, shape, max_segments: int,
         f"segments_L3DTPU_{cam_id}_{w}x{h}_W{wtag}_{max_segments}.npz")
 
 
+def _reference_path(cache_dir: str, cam_id: int, shape,
+                    max_width: int = -1) -> str | None:
+    """Locate a reference Line3D++ cache ``segments_L3D++_<cam>_<WxH>_*.bin``
+    for this view, if one exists (line3D.cc:296-309).
+
+    The reference embeds the PROCESSED (downscaled) image size in the
+    filename; its downscale rule is max-dimension based (line3D.cc:271-293:
+    ``s = max_image_width / max(rows, cols)``), so the expected size is
+    recomputed here and matched with a small rounding tolerance.
+    """
+    cands = glob.glob(os.path.join(cache_dir,
+                                   f"segments_L3D++_{cam_id}_*x*_*.bin"))
+    if not cands:
+        return None
+    h0, w0 = int(shape[0]), int(shape[1])
+    ew, eh = w0, h0
+    if max_width > 0 and max(h0, w0) > max_width:
+        s = max_width / max(h0, w0)
+        ew, eh = round(w0 * s), round(h0 * s)
+
+    best, best_err = None, 3  # accept <= 2 px resize-rounding difference
+    for p in cands:
+        m = re.search(r"_(\d+)x(\d+)_\d+\.bin$", os.path.basename(p))
+        if not m:
+            continue
+        err = abs(int(m.group(1)) - ew) + abs(int(m.group(2)) - eh)
+        if err < best_err:
+            best, best_err = p, err
+    return best
+
+
 def load(cache_dir: str, cam_id: int, shape, max_segments: int,
          max_width: int = -1) -> np.ndarray | None:
-    """Cached (n, 4) segments of view ``cam_id``, or None when not cached."""
+    """Cached (n, 4) segments of view ``cam_id``, or None when not cached
+    or unreadable (the view is then detected again)."""
     p = _path(cache_dir, cam_id, shape, max_segments, max_width)
     if os.path.exists(p):
-        with np.load(p) as data:
-            return data["segments"]
-    if glob.glob(os.path.join(cache_dir, f"segments_L3D++_{cam_id}_*.bin")):
+        try:
+            with np.load(p) as data:
+                return data["segments"]
+        except Exception:
+            return None
+    ref = _reference_path(cache_dir, cam_id, shape, max_width)
+    if ref is not None:
         raise NotImplementedError(
-            "importing reference Line3D++ .bin segment caches is not ported "
-            "yet (ROADMAP item 12)")
+            f"importing the reference Line3D++ segment cache {ref} is not "
+            f"ported yet (ROADMAP item 12)")
     return None
 
 
 def store(cache_dir: str, cam_id: int, shape, max_segments: int,
           segments: np.ndarray, max_width: int = -1) -> None:
+    """Write the cache file under a temporary name and rename it, so that
+    an interrupted run leaves no truncated file."""
     os.makedirs(cache_dir, exist_ok=True)
-    np.savez_compressed(
-        _path(cache_dir, cam_id, shape, max_segments, max_width),
-        segments=np.asarray(segments, dtype=np.float64),
-    )
+    path = _path(cache_dir, cam_id, shape, max_segments, max_width)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    try:
+        with open(tmp, "wb") as f:
+            np.savez_compressed(
+                f, segments=np.asarray(segments, dtype=np.float64))
+        os.replace(tmp, path)
+    except BaseException:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+        raise

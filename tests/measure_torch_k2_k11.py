@@ -28,8 +28,9 @@ at 3072 x 2304 and on the synthetic 1920 x 2560 grids of ``chip_smoke.py``
 (30 / 47 / 57% active, and the stripes at 47%), with the first fit's
 tables, as ``chip_smoke.py`` checks it.  ``--profile`` adds each version's
 device time by kernel (torch.profiler, 10 calls); ``--k11-layouts`` times
-fixed layouts of the current K11 (``csrc/lsd_fit.cu`` built with
-``-DL3D_K11_THREADS=...``) against the earlier kernel on each K11 input.
+fixed layouts of the current K11 (``launch_extents<THREADS, I, OVER, MINB>``
+of ``csrc/lsd_fit.cu``, built through a shim source: :func:`shim_libraries`)
+against the earlier kernel on each K11 input.
 Prints one JSON line and writes it to ``--out``/k2_k11_turns.json.
 """
 
@@ -79,35 +80,61 @@ def old_library(old_root: str) -> ctypes.CDLL:
     return cdll
 
 
-def layout_libraries(layouts) -> dict:
-    """The current lsd_fit.cu built once per fixed K11 layout
-    ``THREADS,I,OVER,MINB`` (threads a block, pixels a lane, 32-pixel
-    groups read past a warp's span, least blocks an SM) into
-    build/kernels_layouts/<hash>/, the builds side by side."""
+LSD_FIT_CU = os.path.join(REPO, "line3dpp_tpu_torch", "csrc", "lsd_fit.cu")
+
+# K11 at a fixed layout LAYOUT = THREADS, I, OVER, MINB (threads a block,
+# pixels a lane, 32-pixel groups read past a warp's span, least blocks an SM)
+K11_FIXED = r"""
+extern "C" int l3d_extents_fixed(const int* slot, const float* xs,
+                                 const float* ys, const float* pix,
+                                 const float* tables, const int* starts,
+                                 int n, int C, float* out, void* stream) {
+  const bool vec = ((reinterpret_cast<uintptr_t>(slot) |
+                     reinterpret_cast<uintptr_t>(xs) |
+                     reinterpret_cast<uintptr_t>(ys) |
+                     reinterpret_cast<uintptr_t>(pix)) & 15) == 0;
+  return launch_extents<LAYOUT>(slot, xs, ys, pix, tables, starts, n, C, vec,
+                                out, (cudaStream_t)stream);
+}
+"""
+
+
+def shim_libraries(kind: str, entries: str, layouts) -> dict:
+    """The current ``csrc/lsd_fit.cu`` built once per fixed layout (a
+    string of comma-separated template values), the builds side by side:
+    a shim source under build/kernels_layouts/<hash>/ includes it and
+    defines ``entries``, C entry points of its own that launch the
+    template at ``LAYOUT``, so the package's source carries no build
+    option.  Returns the loaded libraries by layout."""
     from line3dpp_tpu_torch.ops import kernels
 
-    src = os.path.join(REPO, "line3dpp_tpu_torch", "csrc", "lsd_fit.cu")
-    with open(src, "rb") as f:
-        out_dir = os.path.join(REPO, "build", "kernels_layouts",
-                               hashlib.sha256(f.read()).hexdigest()[:16])
+    with open(LSD_FIT_CU, "rb") as f:
+        h = hashlib.sha256(f.read() + entries.encode()).hexdigest()[:16]
+    out_dir = os.path.join(REPO, "build", "kernels_layouts", h)
     os.makedirs(out_dir, exist_ok=True)
     libs, procs = {}, []
     for layout in layouts:
-        values = layout.split(",")
-        libs[layout] = os.path.join(out_dir, "_".join(values) + ".so")
+        stem = kind + "_" + "_".join(layout.split(","))
+        libs[layout] = os.path.join(out_dir, stem + ".so")
         if not os.path.exists(libs[layout]):
-            defs = [f"-DL3D_K11_{k}={v}" for k, v in
-                    zip(("THREADS", "I", "OVER", "MINB"), values, strict=True)]
+            src = os.path.join(out_dir, stem + ".cu")
+            with open(src, "w") as f:
+                f.write(f'#include "{LSD_FIT_CU}"\n'
+                        f"#define LAYOUT {layout}\n{entries}")
             procs.append(subprocess.Popen([
-                kernels._nvcc(), *kernels.NVCC_FLAGS, *defs, "-shared", src,
-                "-o", libs[layout]]))
+                kernels._nvcc(), *kernels.NVCC_FLAGS, "-shared", src, "-o",
+                libs[layout]]))
     if any(pr.wait() != 0 for pr in procs):
-        chip_smoke.fail("a K11 layout did not build")
-    out = {}
-    for layout, lib in libs.items():
-        out[layout] = ctypes.CDLL(lib)
-        out[layout].l3d_extents.argtypes = [_P] * 6 + [_I] * 2 + [_P] + [_P]
-        out[layout].l3d_extents.restype = ctypes.c_int
+        chip_smoke.fail(f"a fixed {kind} layout did not build")
+    return {k: ctypes.CDLL(v) for k, v in libs.items()}
+
+
+def layout_libraries(layouts) -> dict:
+    """K11 once per fixed layout ``THREADS,I,OVER,MINB``."""
+    out = shim_libraries("k11", K11_FIXED, layouts)
+    for lib in out.values():
+        lib.l3d_extents_fixed.argtypes = [_P] * 6 + [_I] * 2 + [_P] + [_P]
+        lib.l3d_extents_fixed.restype = ctypes.c_int
     return out
 
 
@@ -168,7 +195,7 @@ def layout_turns(layouts, old, want, ok, rounds, slot, xs, ys, pix, tables,
 
     p, stream = kernels.ptr, kernels.stream(slot.device)
     outs = {k: torch.empty((C, 4), device=slot.device) for k in layouts}
-    fns = {k: (lambda k=k, lib=lib: ok(lib.l3d_extents(
+    fns = {k: (lambda k=k, lib=lib: ok(lib.l3d_extents_fixed(
         p(slot), p(xs), p(ys), p(pix), p(tables), p(starts), n, C,
         p(outs[k]), stream), f"K11 layout {k}"))
         for k, lib in layouts.items()}

@@ -20,6 +20,14 @@ the CPU.
   position: ``lsd._pixel_list`` returns that table (``starts``), and
   ``lsd_fit.run_starts`` builds it from a slot list, after
   ``lsd_fit.check_runs`` has found each component in one run.
+- K7 and K8 (``csrc/lsd_fit.cu`` ``fit_kernel``) read the same table: a
+  block owns the runs whose heads lie in its stretch of tiles and reads a
+  run that goes on past the stretch to its end.  ``lsd_fit.moments_split``
+  is that split of the work; here every pixel of every real run is summed
+  exactly once, by the block of its run's head, no dump pixel is, every
+  pixel is gated once and every component's row written once, on lists
+  with short, tile-sized, long and empty components and dump pixels
+  anywhere, for several block counts.
 """
 
 import importlib.util
@@ -31,7 +39,8 @@ import torch
 
 from line3dpp_tpu_torch.ops import lsd, lsd_cc, lsd_fit, matching, scoring
 
-from test_torch_lsd_cases import lines_image, random_sorted_case
+from test_torch_lsd_cases import lines_image, random_sorted_case, \
+    random_tables
 from test_torch_scenes import agreeing_scoring_case, bundled_step_inputs, \
     k2_arguments, k2_scene_arguments, pair_list, synthetic_step_inputs
 
@@ -454,3 +463,167 @@ def test_pixel_list_returns_the_run_table():
     assert np.array_equal(pl["starts"].numpy(), _heads(slot, C))
     assert torch.equal(pl["starts"], lsd_fit.run_starts(pl["slot"], C))
     lsd_fit.check_runs(pl["slot"], C)
+
+
+# ---------------------------------------------------------------------------
+# K7 and K8: the split of the work over the runs
+# ---------------------------------------------------------------------------
+
+SPAN = lsd_fit.FIT_THREADS * lsd_fit.FIT_ITEMS
+
+
+def _runs(lengths, dump, tail, C=None):
+    """A slot list of runs of the given lengths (0: a component with no
+    pixel), ``dump[c]`` dump pixels before run c and ``tail`` after the
+    last; the dump slot is ``C``."""
+    C = len(lengths) if C is None else C
+    slot = []
+    for c, (m, d) in enumerate(zip(lengths, dump)):
+        slot += [C] * int(d) + [c] * int(m)
+    return np.array(slot + [C] * tail, np.int32), C
+
+
+def _split_case(name):
+    rng = np.random.default_rng(sum(map(ord, name)))
+    if name == "short":
+        m = rng.integers(5, 70, 2000)
+        return _runs(m, rng.integers(0, 6, 2000) * (rng.uniform(size=2000)
+                                                     < 0.5), 3)
+    if name == "tile_sized":
+        m = [SPAN + d for d in (-1, 0, 1)] + [3, 4, 5, 127, 128, 129, 31,
+                                              32, 33, SPAN // 2]
+        return _runs(m, rng.integers(0, 3, len(m)), 2)
+    if name == "long":
+        return _runs([7208, 5, 3 * SPAN + 7, 20000, 9000],
+                     [SPAN - 3, 0, 11, 1, SPAN], 5)
+    if name == "empty":
+        return _runs([0, 40, 0, 0, 2 * SPAN + 3, 7, 0, 6, 0],
+                     [2, 0, 3, 0, 1, 0, 0, 9, 0], 0)
+    if name == "dump_only":
+        return _runs([], [], 1500, C=0)
+    if name == "no_dump":
+        return _runs(rng.integers(1, 3 * SPAN, 12), [0] * 12, 0)
+    if name == "random_sorted":
+        return random_sorted_case(rng, n=5000)[0], 256
+    raise ValueError(name)
+
+
+SPLIT_CASES = ["short", "tile_sized", "long", "empty", "dump_only",
+               "no_dump", "random_sorted"]
+
+
+@pytest.mark.parametrize("layout", [(lsd_fit.FIT_THREADS, None),
+                                    (lsd_fit.FIT_THREADS_LONG, 3), (32, 1),
+                                    (32, 7), (64, 5)],
+                         ids=lambda v: f"{v[0]}threads-{v[1]}blocks")
+@pytest.mark.parametrize("name", SPLIT_CASES)
+def test_k7_k8_split_sums_every_run_pixel_once(name, layout):
+    """Each pixel of a real run is added once, to its component, by the
+    block whose stretch of tiles holds the run's head (past the stretch: in
+    that block's read of the rest); no dump pixel is added; K8 gates every
+    pixel once; every row is written once, by the head's block or, for a
+    component with no pixel, by the blocks past the stretches."""
+    slot, C = _split_case(name)
+    threads, blocks = layout
+    span = threads * lsd_fit.FIT_ITEMS
+    t = torch.from_numpy(slot)
+    starts = lsd_fit.run_starts(t, C)
+    lsd_fit.check_runs(t, C)
+    split = lsd_fit.moments_split(t, C, starts, threads, blocks)
+    n = len(slot)
+    real = torch.from_numpy((slot >= 0) & (slot < C))
+    assert torch.equal(split["sums"], real.long())
+    assert torch.equal(split["gates"], torch.ones(n, dtype=torch.long))
+    # the stretches: whole tiles, as even as the tiles allow
+    tiles = -(-n // span)
+    nb = tiles if blocks is None else min(blocks, tiles)
+    c1 = [min((b + 1) * tiles // nb * span, n) for b in range(nb)]
+    block_of = torch.searchsorted(torch.tensor(c1), torch.arange(n),
+                                  right=True)
+    # the owner is the block of the run's head, which adds the pixels in
+    # its stretch and those it reads past it, each in the thread of its
+    # place in its tile
+    head_block = torch.full((n,), -1, dtype=torch.long)
+    head_block[real] = block_of[starts.long()[t.long()[real]]]
+    pos = torch.arange(n)
+    assert torch.equal(split["block"], head_block)
+    assert torch.equal(split["rest"], real & (block_of != head_block))
+    assert torch.equal(split["thread"][real],
+                       pos[real] % span // lsd_fit.FIT_ITEMS)
+    assert (split["thread"][real] < threads).all()
+    assert torch.equal(split["writes"], torch.ones(C, dtype=torch.long))
+    nxt = torch.cat([starts.long(), torch.tensor([n])])
+    empty = starts.long() >= nxt[1:]
+    assert (split["writer"][empty] == -1).all()
+    assert torch.equal(split["writer"][~empty],
+                       block_of[starts.long()[~empty]])
+    if name == "long" and nb > 1:
+        # runs several tiles long are finished by their head's block
+        assert int(split["rest"].sum()) > span
+    if name == "empty":
+        assert int(empty.sum()) == 5
+    if name == "short":
+        assert n % span != 0
+        assert bool(split["rest"].any()) == (nb > 1)
+
+
+def test_k7_k8_layout_follows_the_run_length():
+    """Lists whose components average 512 pixels or more (the facade's
+    round 1: 45,347 pixels, 12 components) take the wide blocks; lists of
+    short runs (real photos' density) the narrow ones; the split's default
+    follows the same rule."""
+    assert lsd_fit.fit_threads(45347, 12) == lsd_fit.FIT_THREADS_LONG
+    assert lsd_fit.fit_threads(2801668, 60360) == lsd_fit.FIT_THREADS
+    assert lsd_fit.fit_threads(512 * 7, 7) == lsd_fit.FIT_THREADS_LONG
+    assert lsd_fit.fit_threads(512 * 7 - 1, 7) == lsd_fit.FIT_THREADS
+    assert lsd_fit.fit_threads(100, 0) == lsd_fit.FIT_THREADS_LONG
+    slot, C = _split_case("long")
+    split = lsd_fit.moments_split(torch.from_numpy(slot), C)
+    span = lsd_fit.FIT_THREADS_LONG * lsd_fit.FIT_ITEMS
+    assert int(split["thread"].max()) == lsd_fit.FIT_THREADS_LONG - 1
+    # the last component's pixels go to the block of its head
+    head = int(lsd_fit.run_starts(torch.from_numpy(slot), C)[-1])
+    assert int(split["block"].max()) == head // span
+
+
+@pytest.mark.parametrize("name", SPLIT_CASES)
+def test_k7_k8_rows_are_the_sums_over_the_run_table(name):
+    """Each row of ``moments`` and ``gate_moments`` (with ``starts`` given,
+    as the detector calls them; on the CPU the plain versions, which equal
+    the calls without it) is the float64 sum of the float32 terms over the
+    pixels of that component in its run ``[starts[c], starts[c + 1])`` of
+    the table, rounded once; column 7 and the rows of components with no
+    pixel are 0."""
+    slot, C = _split_case(name)
+    rng = np.random.default_rng(len(slot))
+    n = len(slot)
+    xs = rng.integers(0, 2560, n).astype(np.float32)
+    ys = rng.integers(0, 1920, n).astype(np.float32)
+    mag = rng.uniform(5.0, 200.0, n).astype(np.float32)
+    pix = (rng.uniform(size=n) < 0.9).astype(np.float32)
+    tables, ang = random_tables(rng, C, n)
+    t = [torch.from_numpy(v) for v in (slot, xs, ys, mag, pix, tables, ang)]
+    slot_t, xs_t, ys_t, mag_t, pix_t, tab_t, ang_t = t
+    starts = lsd_fit.run_starts(slot_t, C)
+    nxt = np.append(starts.numpy().astype(np.int64), n)
+
+    def by_run(p):
+        terms = lsd_fit._moment_terms(xs_t, ys_t, mag_t, p).double().numpy()
+        want = np.zeros((C, 8), np.float32)
+        for c in range(C):
+            lo, hi = nxt[c], nxt[c + 1]
+            own = slot[lo:hi] == c
+            want[c, :7] = terms[lo:hi][own].sum(0)
+        return torch.from_numpy(want)
+
+    got = lsd_fit.moments(slot_t, xs_t, ys_t, mag_t, pix_t, C, starts)
+    assert torch.equal(got, lsd_fit.moments(slot_t, xs_t, ys_t, mag_t,
+                                            pix_t, C))
+    torch.testing.assert_close(got, by_run(pix_t), rtol=1e-6, atol=0)
+    assert got.shape == (C, 8) and not got[:, 7].any()
+    args = (slot_t, xs_t, ys_t, ang_t, mag_t, pix_t, tab_t, True,
+            lsd.COS_GATE, C)
+    np8, mom8 = lsd_fit.gate_moments(*args, starts=starts)
+    np8_b, mom8_b = lsd_fit.gate_moments(*args)
+    assert torch.equal(np8, np8_b) and torch.equal(mom8, mom8_b)
+    torch.testing.assert_close(mom8, by_run(np8), rtol=1e-6, atol=0)

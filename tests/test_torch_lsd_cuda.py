@@ -8,7 +8,9 @@ On a machine with a card and without JAX (the root conftest imports JAX)::
         tests/test_torch_lsd_cuda.py
 """
 
+import importlib.util
 import math
+import os
 
 import numpy as np
 import pytest
@@ -371,6 +373,146 @@ def test_k11_refuses_a_split_component_without_a_run_table(cuda):
             lsd_fit.extents_cuda(slot, ones, ones, ones, tables, 2)
         assert (lsd_fit.extents_plain(slot, ones, ones, ones, tables, 2)
                 != lsd_fit.BIG).all()
+
+
+def _k78_equal(dev, slot, xs, ys, pix, tables, C, seed=0):
+    """K7 and K8 with the run table given and built: sums within 1e-6
+    (relative) of the plain version's, K8's newpix equal to K9's and its
+    sums those of K9's pixels, two calls equal bit for bit."""
+    rng = np.random.default_rng(seed)
+    n = len(slot)
+    mag = rng.uniform(5.0, 200.0, n).astype(np.float32)
+    ang = rng.uniform(-np.pi, np.pi, n).astype(np.float32)
+    t = [torch.from_numpy(v).to(dev) for v in (slot, xs, ys, mag, pix,
+                                               tables, ang)]
+    slot_t, xs_t, ys_t, mag_t, pix_t, tab_t, ang_t = t
+    bits = lambda x: x.view(torch.int32)
+    want = lsd_fit.moments_plain(slot_t, xs_t, ys_t, mag_t, pix_t, C)
+    starts = lsd_fit.run_starts(slot_t, C)
+    cos_gate = float(np.float32(math.cos(math.radians(22.5))))
+    np9 = lsd_fit.gate_pixels_cuda(slot_t, xs_t, ys_t, ang_t, pix_t, tab_t,
+                                   True, cos_gate, C)
+    want8 = lsd_fit.moments_plain(slot_t, xs_t, ys_t, mag_t, np9, C)
+    for given in (None, starts):
+        got = lsd_fit.moments_cuda(slot_t, xs_t, ys_t, mag_t, pix_t, C,
+                                   starts=given)
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=0)
+        assert torch.equal(bits(got), bits(lsd_fit.moments_cuda(
+            slot_t, xs_t, ys_t, mag_t, pix_t, C, starts=given)))
+        args = (slot_t, xs_t, ys_t, ang_t, mag_t, pix_t, tab_t, True,
+                cos_gate, C)
+        np8, mom8 = lsd_fit.gate_moments_cuda(*args, starts=given)
+        assert torch.equal(np8, np9)
+        torch.testing.assert_close(mom8, want8, rtol=1e-6, atol=0)
+        np8b, mom8b = lsd_fit.gate_moments_cuda(*args, starts=given)
+        assert torch.equal(np8b, np8) and torch.equal(bits(mom8b),
+                                                      bits(mom8))
+    return want
+
+
+@pytest.mark.parametrize("layout", ["boundaries", "long", "short", "empty"])
+def test_k7_k8_runs_across_threads_warps_and_tiles(cuda, layout):
+    """Runs that start and end on and next to the kernels' thread (4
+    pixels), warp (128) and tile (1024 and 2048, the two layouts) borders,
+    runs of several tiles, many short runs, and components with no pixel or
+    none with pix != 0."""
+    rng = np.random.default_rng(4)
+    span = lsd_fit.FIT_THREADS * lsd_fit.FIT_ITEMS
+    if layout == "boundaries":
+        lengths, dump = [], []
+        for edge in (lsd_fit.FIT_ITEMS, 32 * lsd_fit.FIT_ITEMS, span,
+                     2 * span, 4 * span):
+            for d in (-1, 0, 1):
+                lengths.append(edge + d)
+                dump.append(int(rng.integers(0, 3)))
+    elif layout == "long":
+        lengths = [20000, 5, span * 3 + 7, 9000, 7208]
+        dump = [span - 3, 0, 11, span, 1]
+    elif layout == "short":
+        lengths = list(rng.integers(5, 70, 6000))
+        dump = list(rng.integers(0, 6, 6000) * (rng.uniform(size=6000) < 0.5))
+    else:
+        lengths, dump = [5, 40, 300, 7, 2 * span + 1], [2, 0, 9, 1, 3]
+    slot, xs, ys, pix, tables, C = _k11_runs(lengths, dump, seed=5)
+    if layout == "empty":
+        pix[slot == 1] = 0.0
+        # components 1 and 5 have no pixel (slots renamed around them),
+        # component 2 no pixel with pix != 0
+        slot = np.where(slot >= 1, slot + 1, slot)
+        slot = np.where(slot >= 5, slot + 1, slot).astype(np.int32)
+        tables = np.concatenate([tables, tables[:2]])
+        C += 2
+    want = _k78_equal(cuda, slot, xs, ys, pix, tables, C)
+    if layout == "empty":
+        assert not want[[1, 2, 5]].any()
+        assert (want[[0, 3, 4, 6], 6] > 0).all()
+
+
+def test_k7_k8_with_the_detectors_run_table(cuda):
+    """On a detection's round-1 list: the run table of _pixel_list gives
+    what the built one and the plain version give."""
+    img, _ = lsd._prepare(lines_image(), -1, cuda)
+    _, _, th, tw, _, _ = lsd._statics(*img.shape)
+    pl = lsd._pixel_list(*lsd._grad_compact(img), lsd.PREC, (th, tw))
+    slot, C, n = pl["slot"], pl["C"], pl["n"]
+    rng = np.random.default_rng(6)
+    tables = torch.from_numpy(random_tables(rng, C, 1)[0]).to(cuda)
+    pix = torch.ones(n, device=cuda)
+    args = (slot, pl["xs"], pl["ys"], pl["mag_s"], pix, C)
+    want = lsd_fit.moments_plain(*args)
+    for given in (pl["starts"], None):
+        torch.testing.assert_close(lsd_fit.moments_cuda(*args, given), want,
+                                   rtol=1e-6, atol=0)
+    args8 = (slot, pl["xs"], pl["ys"], pl["ang_s"], pl["mag_s"], pix,
+             tables, True, lsd.COS_GATE, C)
+    np8, mom8 = lsd_fit.gate_moments_cuda(*args8, pl["starts"])
+    np8b, mom8b = lsd_fit.gate_moments_cuda(*args8)
+    assert torch.equal(np8, np8b) and torch.equal(mom8, mom8b)
+    assert torch.equal(np8, lsd_fit.gate_pixels_cuda(
+        slot, pl["xs"], pl["ys"], pl["ang_s"], pix, tables, True,
+        lsd.COS_GATE, C))
+
+
+def test_k8_gate_sincosf_equals_k9_sinf_cosf_on_every_float32(cuda):
+    """K8 gates with sincosf, K9 with sinf and cosf: the bits agree for all
+    2^32 float32 angles (chip_smoke.SINCOS_CHECK_CU), so K8's newpix is
+    K9's on any input."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))), "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    assert smoke.sincos_differences(cuda) == (0, -1)
+
+
+def test_k7_k8_take_only_the_two_layouts(cuda):
+    """The kernels launch at the threads a block fit_threads chooses and
+    refuse any other count."""
+    ones = torch.ones(8, device=cuda)
+    slot = torch.zeros(8, dtype=torch.int32, device=cuda)
+    starts = torch.zeros(1, dtype=torch.int32, device=cuda)
+    out = torch.empty((1, 8), device=cuda)
+    p, stream = kernels.ptr, kernels.stream(cuda)
+    for threads in (lsd_fit.FIT_THREADS, lsd_fit.FIT_THREADS_LONG, 128, 0):
+        rc = kernels.library().l3d_moments(
+            p(slot), p(ones), p(ones), p(ones), p(ones), p(starts), 8, 1,
+            threads, p(out), stream)
+        assert (rc == 0) == (threads in (lsd_fit.FIT_THREADS,
+                                         lsd_fit.FIT_THREADS_LONG))
+    torch.cuda.synchronize()
+    assert out[0, 6] == 8 and out[0, 0] == 8
+
+
+def test_k7_k8_refuse_a_split_component_without_a_run_table(cuda):
+    rng = np.random.default_rng(3)
+    tables = torch.from_numpy(random_tables(rng, 2, 1)[0]).to(cuda)
+    slot = torch.tensor([0, 0, 2, 0, 1, 1], dtype=torch.int32, device=cuda)
+    ones = torch.ones(6, device=cuda)
+    with pytest.raises(ValueError, match="component 0 has 2 runs"):
+        lsd_fit.moments_cuda(slot, ones, ones, ones, ones, 2)
+    with pytest.raises(ValueError, match="component 0 has 2 runs"):
+        lsd_fit.gate_moments_cuda(slot, ones, ones, ones, ones, ones, tables,
+                                  True, 0.9, 2)
 
 
 def _band_tables(rng, tables):
