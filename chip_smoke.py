@@ -31,24 +31,31 @@
    photo's density (``FULL_SIZE_ACTIVE``) and with long edges
    (``synthetic_stripes``) (K7, K8 and K11 with the detector's run table
    and with the one their wrappers build; K7 and K8 also bit-identical in
-   a second call), compares every view's
+   a second call; K6 with the map against K5 then K6 and K9's consume form
+   against its gate and the mask, both also bit-identical in a second
+   call), and K6 with the map and K9's consume form on the inputs that
+   view 0's three rounds give them (``check_facade_rounds``), compares
+   every view's
    detections with the JAX ones (``DETECT_*``), reconstructs from JAX's
    detections (JAX's lines at count_f1 >= 0.99, and count_f1, recall and
    precision against the 74 ground-truth lines within 0.02 of JAX's), and
    drives ``Line3D`` -> ``add_images`` -> ``match_images`` ->
    ``reconstruct_3d_lines`` -> ``save_*`` with the counters reset and read
    around it; requires every kernel to have launched and the ground-truth
-   metrics within ``GT_SPREAD`` of JAX's.  Then the same images under
+   metrics within ``GT_SPREAD`` of JAX's, K6 with the map once per round
+   and no K5.  Then the same images under
    ``Config(lsd_rescue=True)`` (rescue cascade with K10, bundling on)
    against ``tests/data/torch_scene2_3072_rescue_jax_reference.npz``, with
-   the number of rescued rectangles of every view (``RESCUE_*``) and all
-   eleven kernels required to have launched.
-5. Prints one ``{"full_size": ...}`` line (the detection kernels on the
-   synthetic grids), one ``{"kernels": [...]}`` line (``launches``: the
-   rescue path's run, which launches every kernel; ``launches_default``:
-   the ``Config(optimize=False)`` run, which launches no K10), the
-   nvidia-smi line, and last ``{"ok": true, "device": {...}}``.  Any
-   failed check exits non-zero.
+   the number of rescued rectangles of every view (``RESCUE_*``) and every
+   kernel of detection required to have launched (``OFF_PATH`` are not).
+5. Prints one ``{"facade_rounds": ...}`` line (K6 with the map and K9's
+   consume form on facade view 0's rounds, beside K5 + K6 and K9 with the
+   torch tail they replace), one ``{"full_size": ...}`` line (the detection
+   kernels on the synthetic grids), one ``{"kernels": [...]}`` line
+   (``launches``: the rescue path's run; ``launches_default``: the
+   ``Config(optimize=False)`` run, which launches no K10 and no K9
+   gate_pixels form), the nvidia-smi line, and last ``{"ok": true,
+   "device": {...}}``.  Any failed check exits non-zero.
 
 ``--out DIR`` writes the build log (and the profiles) there; ``--profile``
 adds a torch.profiler breakdown of one more ``match_images`` run, of the
@@ -142,6 +149,12 @@ FULL_SIZE_ACTIVE = (0.30, 0.47, 0.57)
 # what the full_size line keeps of each kernel's row
 FULL_SIZE_KEYS = ("name", "max_abs_err", "ms", "device_ms", "plain_ms",
                   "bound_ms", "bound_by", "library_ms", "library_device_ms")
+# kernels that detection does not launch (K5, and K6 without the map: the
+# merged gather does their work), and those only the rescue cascade does
+# (K10; K9's gate_pixels form, its p/2 retry: the consume step is K9's
+# consume form)
+OFF_PATH = ("apply_merge_dense", "gather_labels")
+RESCUE_ONLY = ("band_counts", "gate_pixels")
 # the long-edge grid: bands of this many rows of one angle, 47% active
 STRIPE_ROWS = 8
 STRIPE_ACTIVE = 0.47
@@ -278,6 +291,17 @@ def device_ms(fn, reps: int = 20) -> float:
             return start.elapsed_time(end) / reps
         cycles *= 2
     fail("device_ms: the host never queued the calls within the sleep")
+
+
+def device_sum_ms(fn, calls: int = 10) -> float:
+    """Milliseconds per call of ``fn()`` that the card spends in kernels,
+    copies and memsets (their durations summed, torch.profiler): the card's
+    time of a call that syncs with the host, which ``device_ms`` cannot
+    queue."""
+    fn()
+    _, events, _ = device_events(lambda: [fn() for _ in range(calls)])
+    return 1e-3 * sum(e["dur"] for e in events if e.get("cat") in (
+        "kernel", "gpu_memcpy", "gpu_memset")) / calls
 
 
 def nbytes(*tensors) -> int:
@@ -565,6 +589,13 @@ def scoring_inputs(d, pm, cfg, knn):
     return args, kw
 
 
+def consume_bytes(slot, xs, ys, ang, tables, survivors: int) -> int:
+    """The bytes K9's consume form must move: slot, x, y and angle of every
+    pixel, the tables, and per survivor its 8 B index and magnitude read and
+    its index, magnitude and angle written (28 B)."""
+    return nbytes(slot, xs, ys, ang, tables) + 28 * survivors
+
+
 def bound(ops: float, moved: float) -> tuple[float, str]:
     """Least time on the card in ms, and what bounds it."""
     t_ops, t_bytes = ops / PEAK_F32, moved / PEAK_BYTES
@@ -573,17 +604,18 @@ def bound(ops: float, moved: float) -> tuple[float, str]:
 
 
 def kernel_row(name, source, replaces, err, fn, plain_ms, ops, moved,
-               library=None) -> dict:
+               library=None, card=None) -> dict:
     """The kernels line's entry of the wrapper call ``fn``: ``ms`` by CUDA
     events around 20 calls (the host's share of the wrapper included),
-    ``device_ms`` the card's busy time per call; the same two times of the
-    PyTorch call ``library`` that computes the same function, where there
-    is one, so that card compares with card and call with call."""
+    ``device_ms`` the card's busy time per call (of ``card``, the launch
+    alone, where the wrapper syncs with the host); the same two times of
+    the PyTorch call ``library`` that computes the same function, where
+    there is one, so that card compares with card and call with call."""
     b_ms, by = bound(ops, moved)
     row = dict(name=name, route="cuda",
                source=f"line3dpp_tpu_torch/csrc/{source}",
                replaces=replaces, max_abs_err=err, ms=cuda_ms(fn, 20),
-               device_ms=device_ms(fn), plain_ms=plain_ms,
+               device_ms=device_ms(card or fn), plain_ms=plain_ms,
                bound_ms=b_ms, bound_by=by, library_ms=None)
     if library is not None:
         row.update(library_ms=cuda_ms(library, 20),
@@ -925,6 +957,33 @@ def check_lsd_kernels(angle, active, idx, mag_c, ang_c, tile, dev,
         0, nbytes(idx, got6) + 4 * idx.numel(),
         library=lambda: torch.index_select(flat, 0, idx)))
 
+    # K6 with the map, as _pixel_list calls it: bit for bit its plain
+    # version and K5 then K6, and the same bits in a second call
+    got_m = lsd_gather.gather_merged_cuda(lab, T, idx)
+    again_m = lsd_gather.gather_merged_cuda(lab, T, idx)
+    exact_m = (torch.equal(got_m, lsd_gather.gather_merged_plain(lab, T, idx))
+               and torch.equal(got_m, got6))
+    print(f"[{what}] K6 gather_merged: {idx.numel()} pixels, bit-exact "
+          f"against its plain version and K5 then K6 {exact_m}; two calls "
+          f"bit-identical: {torch.equal(got_m, again_m)}", flush=True)
+    check(exact_m, "K6 gather_merged differs from its plain version or "
+                   "from K5 then K6")
+    check(torch.equal(got_m, again_m), "K6 gather_merged gives other bits "
+                                       "in another call")
+    lab_flat = lab.reshape(-1)
+    check(bool((lab_flat[idx] < lab.numel()).all()),
+          "a listed pixel without a label")
+    rows.append(kernel_row(
+        "K6 gather_merged", "lsd_gather.cu",
+        "line3dpp_tpu/ops/lsd_gather.py:266", 0.0,
+        lambda: lsd_gather.gather_merged_cuda(lab, T, idx),
+        cuda_ms(lambda: lsd_gather.gather_merged_plain(lab, T, idx), 20),
+        # the function's bytes: an 8 B index, its label, the label's map
+        # entry and the 4 B output per listed pixel
+        0, nbytes(idx, got_m) + 8 * idx.numel(),
+        library=lambda: torch.index_select(
+            T, 0, torch.index_select(lab_flat, 0, idx))))
+
     pl = lsd._pixel_list(angle, active, idx, mag_c, ang_c, tol, tile)
     n, C = pl["n"], pl["C"]
     slot, xs, ys = pl["slot"], pl["xs"], pl["ys"]
@@ -1062,6 +1121,35 @@ def check_lsd_kernels(angle, active, idx, mag_c, ang_c, tile, dev,
         cuda_ms(lambda: lsd_fit.gate_pixels_plain(*args9), 5),
         K9_OPS_PER_PIXEL * n_real, nbytes(slot, xs, ys, ang, pix, t9, np9)))
 
+    # K9's consume form on the same tables: bit for bit the gate above
+    # (pix = 1, no dump pixel kept) and the mask, count included; the same
+    # bits in a second call
+    idx_s = pl["idx_s"]
+    args_c = (slot, xs, ys, idx_s, mag, ang, t9, lsd.COS_GATE, C)
+    surv = lsd_fit.consume_survivors_cuda(*args_c)
+    surv_again = lsd_fit.consume_survivors_cuda(*args_c)
+    alive = np9 == 0.0
+    same_c = all(torch.equal(g, v[alive]) for g, v in zip(surv, (idx_s, mag,
+                                                                 ang)))
+    repeat_c = all(torch.equal(a, b) for a, b in zip(surv, surv_again))
+    print(f"[{what}] K9 consume_survivors: {surv[0].numel()} of {n} pixels "
+          f"survive; equal to K9's gate and the mask (count included): "
+          f"{same_c}; two calls bit-identical: {repeat_c}; {flip9} gates "
+          f"differ from the plain version (limit {1e-5 * n:.1f})", flush=True)
+    check(same_c, "K9's consume form differs from its gate and the mask")
+    check(repeat_c, "K9's consume form gives other bits in another call")
+    outs_c = (torch.empty_like(idx_s), torch.empty_like(mag),
+              torch.empty_like(ang),
+              torch.empty(1, dtype=torch.int32, device=dev))
+    rows.append(kernel_row(
+        "K9 consume_survivors", "lsd_fit.cu",
+        "line3dpp_tpu/ops/lsd_fit.py:402", float(flip9),
+        lambda: lsd_fit.consume_survivors_cuda(*args_c),
+        cuda_ms(lambda: lsd_fit.consume_survivors_plain(*args_c), 5),
+        K9_OPS_PER_PIXEL * n_real,
+        consume_bytes(slot, xs, ys, ang, t9, surv[0].numel()),
+        card=lambda: lsd_fit.consume_survivors_into(*args_c, *outs_c)))
+
     # the rescue's 15 bands and rect_improve's 4 on the first fit's
     # rectangles, as _rescue builds the tables: K10, integer counts, exact
     t10 = lsd._band_tables(f)
@@ -1088,6 +1176,119 @@ def check_lsd_kernels(angle, active, idx, mag_c, ang_c, tile, dev,
                 (K10_OPS_PER_PIXEL + K10_OPS_PER_BAND * len(bands)) * n_real,
                 nbytes(slot, xs, ys, pix, t10, bt, cnt)))
     return rows
+
+
+def record_rounds(img) -> dict:
+    """The arguments of every call of K6 with the map (``gather``) and of
+    K9's consume form (``consume``) in one detection of ``img``, cloned, in
+    the order of the rounds."""
+    import torch
+    from line3dpp_tpu_torch.ops import lsd, lsd_fit, lsd_gather
+
+    calls = {"gather": [], "consume": []}
+    orig = lsd_gather.gather_merged, lsd_fit.consume_survivors
+
+    def record(kind, fn):
+        def call(*args):
+            calls[kind].append(tuple(a.clone() if torch.is_tensor(a) else a
+                                     for a in args))
+            return fn(*args)
+        return call
+
+    lsd_gather.gather_merged = record("gather", orig[0])
+    lsd_fit.consume_survivors = record("consume", orig[1])
+    try:
+        lsd._lsd_core(img)
+    finally:
+        lsd_gather.gather_merged, lsd_fit.consume_survivors = orig
+    return calls
+
+
+def check_facade_rounds(img, dev) -> dict:
+    """K6 with the map on the three rounds and K9's consume form on the two
+    consume rounds of one facade view, on the inputs the detector gives
+    them (recorded in one detection, the consume tables from the round's
+    accepted rectangles): bit for bit their plain version and K5 then K6,
+    and K9's gate_pixels form and the mask (count included), within the
+    gate flips of the plain version; the same bits in a second call.
+    Returns per call the card times and wrapper times beside those of what
+    they replace (K5 + K6; K9 + the torch tail of three mask indexings)."""
+    import torch
+    from line3dpp_tpu_torch.ops import lsd_fit, lsd_gather
+
+    calls = record_rounds(img)
+    check(len(calls["gather"]) == 3 and len(calls["consume"]) == 2,
+          f"facade view 0 ran {len(calls['gather'])} gathers and "
+          f"{len(calls['consume'])} consume steps, not 3 and 2")
+    out = {}
+    for r, (lab, T, idx) in enumerate(calls["gather"], 1):
+        def k5_k6(lab=lab, T=T, idx=idx):
+            return lsd_gather.gather_labels_cuda(
+                lsd_gather.apply_merge_dense_cuda(lab, T).reshape(-1), idx)
+
+        def k6(lab=lab, T=T, idx=idx):
+            return lsd_gather.gather_merged_cuda(lab, T, idx)
+
+        got = k6()
+        exact = (torch.equal(got, lsd_gather.gather_merged_plain(lab, T, idx))
+                 and torch.equal(got, k5_k6()) and torch.equal(got, k6()))
+        n = idx.numel()
+        row = dict(pixels=n, bit_exact=exact, device_ms=device_ms(k6),
+                   ms=cuda_ms(k6, 20), k5_k6_device_ms=device_ms(k5_k6),
+                   k5_k6_ms=cuda_ms(k5_k6, 20),
+                   bound_ms=bound(0, nbytes(idx, got) + 8 * n)[0])
+        print(f"[facade view 0, round {r}] K6 gather_merged: "
+              f"{json.dumps(row)}", flush=True)
+        check(exact, f"round {r}: K6 gather_merged differs from its plain "
+                     f"version, from K5 then K6 or from a second call")
+        out[f"round {r} K6 gather_merged"] = row
+    for r, args in enumerate(calls["consume"], 1):
+        slot, xs, ys, idx_s, mag, ang, tables, cos_tol, C = args
+        gate_args = (slot, xs, ys, ang, torch.ones_like(xs), tables, False,
+                     cos_tol, C)
+
+        def k9_tail(args=args):
+            # the consume step before K9's consume form: a fill of ones,
+            # K9, two element-wise passes and three mask indexings
+            slot, xs, ys, idx_s, mag, ang, tables, cos_tol, C = args
+            alive = ~(lsd_fit.gate_pixels_cuda(
+                slot, xs, ys, ang, torch.ones_like(xs), tables, False,
+                cos_tol, C) != 0.0)
+            return idx_s[alive], mag[alive], ang[alive]
+
+        outs = (torch.empty_like(idx_s), torch.empty_like(mag),
+                torch.empty_like(ang),
+                torch.empty(1, dtype=torch.int32, device=dev))
+        got = lsd_fit.consume_survivors_cuda(*args)
+        again = lsd_fit.consume_survivors_cuda(*args)
+        alive = lsd_fit.gate_pixels_cuda(*gate_args) == 0.0
+        flips = int((alive != (lsd_fit.gate_pixels_plain(*gate_args)
+                               == 0.0)).sum())
+        same = all(torch.equal(g, v[alive]) and torch.equal(g, a)
+                   for g, a, v in zip(got, again, (idx_s, mag, ang)))
+        n = slot.numel()
+        row = dict(
+            pixels=n, components=C, survivors=got[0].numel(),
+            equals_gate_and_mask=same, plain_flips=flips,
+            device_ms=device_ms(
+                lambda: lsd_fit.consume_survivors_into(*args, *outs)),
+            device_sum_ms=device_sum_ms(
+                lambda: lsd_fit.consume_survivors_cuda(*args)),
+            ms=cuda_ms(lambda: lsd_fit.consume_survivors_cuda(*args), 20),
+            k9_device_ms=device_ms(
+                lambda: lsd_fit.gate_pixels_cuda(*gate_args)),
+            k9_tail_device_sum_ms=device_sum_ms(k9_tail),
+            k9_tail_ms=cuda_ms(k9_tail, 20),
+            bound_ms=bound(K9_OPS_PER_PIXEL * int((slot < C).sum()),
+                           consume_bytes(slot, xs, ys, ang, tables,
+                                         got[0].numel()))[0])
+        print(f"[facade view 0, round {r}] K9 consume_survivors: "
+              f"{json.dumps(row)}", flush=True)
+        check(same and flips <= 1e-5 * n, f"round {r}: K9's consume form "
+              f"differs from its gate and the mask, from a second call or "
+              f"from the plain version")
+        out[f"round {r} K9 consume_survivors"] = row
+    return out
 
 
 def rescue_differences(view, ref_rescued, ref_segs, segs, ok, diag) -> list:
@@ -1258,9 +1459,16 @@ def images_to_lines(images, cams, gt, ref, dev, rescue: bool = False):
     print("images -> lines: " + json.dumps(phases), flush=True)
     print("launches: " + json.dumps(launches), flush=True)
     for name, n in launches.items():
-        # K10 runs in the rescue cascade only
-        check(n > 0 or (name == "band_counts" and not rescue),
+        # K5 and K6's gather_labels form are not on the detection path
+        # (held against their plain versions above); K10 and K9's
+        # gate_pixels form run in the rescue cascade only
+        check(n > 0 or name in OFF_PATH
+              or (name in RESCUE_ONLY and not rescue),
               f"kernel {name} was not launched on the images -> lines path")
+    check(all(launches[name] == 0 for name in OFF_PATH),
+          "detection launched K5 or K6's gather_labels form")
+    check(launches["gather_merged"] == launches["cc_tiles"],
+          "K6 with the map did not run once per detection round")
     if rescue:
         got_res = [st["n_rescue"] for st in pipe.detect_stats]
         check(got_res == [st["n_rescue"] for _, st in runs],
@@ -1565,6 +1773,7 @@ def main() -> None:
     _, _, th, tw, _, _ = lsd._statics(*img.shape)
     rows += check_lsd_kernels(*lsd._grad_compact(img), (th, tw), dev,
                               "facade view 0")
+    facade_rounds = check_facade_rounds(img, dev)
     # the same at a real photo's density, where the work is not launches
     full = {}
     for frac in FULL_SIZE_ACTIVE:
@@ -1613,6 +1822,7 @@ def main() -> None:
         # the default Config()'s detection (no K10)
         r["launches"] = launches[r["name"].split()[1]]
         r["launches_default"] = default_launches[r["name"].split()[1]]
+    print(json.dumps({"facade_rounds": facade_rounds}), flush=True)
     print(json.dumps({"full_size": full}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi_line, flush=True)
@@ -1629,6 +1839,9 @@ def profile(fn, label: str, out_dir) -> None:
     print(prof.key_averages().table(sort_by="device_time_total",
                                     row_limit=25), flush=True)
     busy, n_device = device_busy_us(events)
+    # every device-to-host copy is a host sync (.item(), int(), nonzero)
+    n_sync = sum(1 for e in events if e.get("cat") == "gpu_memcpy"
+                 and "DtoH" in e.get("name", ""))
     span = (max(e["ts"] + e["dur"] for e in events)
             - min(e["ts"] for e in events))
     # the span covers the torch ops; the wall time adds host work outside
@@ -1637,7 +1850,8 @@ def profile(fn, label: str, out_dir) -> None:
           f"{span / 1e3:.3f} ms, device busy {busy / 1e3:.3f} ms "
           f"({100 * busy / span:.1f}% of the span, "
           f"{busy / 1e4 / wall:.1f}% of the wall), {n_device} device "
-          f"events", flush=True)
+          f"events, {n_sync} host syncs (device-to-host copies)",
+          flush=True)
 
 
 if __name__ == "__main__":

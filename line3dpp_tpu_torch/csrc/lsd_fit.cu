@@ -1,5 +1,6 @@
-// K7 moments, K8 gate_moments, K9 gate_pixels, K10 band_counts and K11
-// extents: the LSD rectangle-fit passes over the label-sorted pixel list.
+// K7 moments, K8 gate_moments, K9 gate_pixels (and its consume form,
+// consume_survivors), K10 band_counts and K11 extents: the LSD
+// rectangle-fit passes over the label-sorted pixel list.
 //
 // Replace line3dpp_tpu/ops/lsd_fit.py:_moments_kernel (moments),
 // _gate_moments_kernel (gate_moments), _gate_kernel (gate_pixels),
@@ -15,11 +16,12 @@
 //
 // What bounds them on the H100: memory.  Each pass streams 4-6 planes of
 // 4 B per pixel (2.8 M pixels at 3072 x 2304 on real photos) and writes one
-// plane or a small table; the tables are L2-resident.  K9 is one thread per
-// pixel; K10 one thread per pixel whose warp counts the runs it holds with
-// ballots and adds them with one integer atomic per run and warp; K7, K8
-// and K11 read whole component runs through the run table (below), with no
-// atomics and no init or output pass.
+// plane or a small table; the tables are L2-resident.  K9 is one thread
+// per pixel, and its consume form compacts the survivors in the same pass
+// (gate_kernel); K10 one thread per pixel whose warp counts the runs it
+// holds with ballots and adds them with one integer atomic per run and
+// warp; K7, K8 and K11 read whole component runs through the run table
+// (below), with no atomics and no init or output pass.
 //   - Sums (K7, K8): the float32 terms w, wx, wy, wx*x, wy*y, wx*y, pix of
 //     the JAX package are accumulated in float64 and rounded to float32 at
 //     the end.  The sums of w x^2 reach ~1e13 at x ~ 2560 and the fit
@@ -112,18 +114,221 @@ __device__ __forceinline__ float decode(int i) {
   for (int64_t base = (int64_t)blockIdx.x * blockDim.x + (threadIdx.x & ~31); \
        base < (n); base += (int64_t)gridDim.x * blockDim.x)
 
-__global__ void gate_kernel(const int* __restrict__ slot,
-                            const float* __restrict__ xs,
-                            const float* __restrict__ ys,
-                            const float* __restrict__ ang,
-                            const float* __restrict__ pix,
-                            const float4* __restrict__ tab, int64_t n, int C,
-                            bool dump_keep, float cos_tol,
-                            float* __restrict__ newpix) {
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += (int64_t)gridDim.x * blockDim.x) {
-    newpix[i] = gate_one(tab, slot[i], C, xs[i], ys[i], ang[i], pix[i],
-                         dump_keep, cos_tol);
+// K9 in two forms, one routine (gate_kernel<COMPACT, THREADS, ITEMS>).  A
+// block works on tiles of THREADS * ITEMS pixels, each warp on 32 * ITEMS
+// consecutive ones: item q of lane l is the warp's pixel 32 q + l, so every
+// plane is read coalesced and all ITEMS loads of a lane are in flight
+// together.
+//   - gate_pixels (COMPACT false): newpix = gate_one of each pixel, one
+//     pixel a thread; the grid fills the SMs and strides over the tiles.
+//   - consume_survivors (COMPACT true): the detector's consume step.  A
+//     pixel of a real component is consumed when the gate keeps it with
+//     pix = 1 (gate_row: the band test first, the angle only inside the
+//     band, sincosf, whose bits equal cosf's and sinf's); a dump pixel
+//     never is.  The survivors' (idx, mag, ang) are written in list order,
+//     and their count.  One tile a block (256 threads, 2 or 8 pixels a
+//     thread, by the list's length against the SMs: lsd_fit.consume_items):
+//     each warp ballots its survivors item by item and starts the loads of
+//     their index and magnitude only, a prefix over the warps in shared
+//     memory gives each warp its offset in the tile, and the tile's offset
+//     in the output is found, while those loads are in flight, by decoupled
+//     look-back over one status word per tile: the
+//     tile posts its count (an aggregate) at once, then sums its
+//     predecessors' words, 32 at a time, back to the nearest one that
+//     holds an inclusive prefix, and posts its own.  A word is
+//     (epoch << 32 | inclusive << 31 | value): the caller passes a new
+//     epoch with every call, so the words of an earlier call read as not
+//     posted and the buffer needs no memset.  Tiles are blocks in launch
+//     order, so a tile waits only on tiles that are running or done.  The
+//     ranks are fixed by the list, so the output does not depend on the
+//     schedule.  tests/test_torch_kernel_design.py mirrors this split in
+//     torch.
+// What bounds the consume form: memory, 16 B read per pixel (slot, x, y,
+// ang), 12 B read (an 8 B index, mag) and 16 B written per survivor, and
+// the table rows.  Switched off in turns at 57% active on an H100 80GB
+// HBM3 at 700 W (tests/measure_torch_k6_k9.py --consume-variants), the
+// survivor writes cost 13 us of its 55 us, the look-back 11 us and the
+// payload loads 8 us.
+
+// the consume form's layout: threads a block, and pixels a thread for
+// short lists and for long ones (lsd_fit.consume_items)
+constexpr int kConsumeThreads = 256;
+
+struct GateArgs {
+  const int* slot;
+  const float *xs, *ys, *ang, *pix;     // pix: gate_pixels only
+  const float4* tab;
+  int64_t n;
+  int C, dump_keep;
+  float cos_tol;
+  float* newpix;                        // gate_pixels' output
+  // consume_survivors: the payload, the outputs, the tiles' status words
+  const int64_t* idx;
+  const float* mag;
+  int64_t* idx_out;
+  float *mag_out, *ang_out;
+  int* count;
+  unsigned long long* status;
+  unsigned epoch;
+};
+
+__device__ __forceinline__ unsigned long long status_word(unsigned epoch,
+                                                          bool inclusive,
+                                                          int value) {
+  return (unsigned long long)epoch << 32 | (inclusive ? 0x80000000ull : 0ull) |
+         (unsigned)value;
+}
+
+__device__ __forceinline__ void post_status(unsigned long long* p,
+                                            unsigned long long w) {
+  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(w)
+               : "memory");
+}
+
+__device__ __forceinline__ unsigned long long read_status(
+    const unsigned long long* p) {
+  unsigned long long w;
+  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];" : "=l"(w) : "l"(p)
+               : "memory");
+  return w;
+}
+
+__device__ __forceinline__ int warp_sum(int v) {
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1) v += __shfl_xor_sync(kFull, v, d);
+  return v;
+}
+
+// the survivors before tile t (t > 0), by the whole warp: the words of
+// t - 1, t - 2, ... 32 at a time (lane 0 the nearest), each window once
+// all 32 are posted, summed back to the nearest inclusive one
+__device__ int look_back(const unsigned long long* status, int64_t t,
+                         unsigned epoch, int lane) {
+  int sum = 0;
+  for (int64_t k = t - 1;; k -= 32) {
+    const int64_t j = k - lane;
+    unsigned long long w;
+    do {
+      // below tile 0 (never reached past tile 0's inclusive word): 0
+      w = j >= 0 ? read_status(status + j) : status_word(epoch, true, 0);
+    } while (!__all_sync(kFull, (unsigned)(w >> 32) == epoch));
+    const unsigned inclusive = __ballot_sync(kFull, (w >> 31) & 1);
+    const int v = (int)(w & 0x7fffffffull);
+    if (inclusive) {
+      const int first = __ffs(inclusive) - 1;
+      return sum + warp_sum(lane <= first ? v : 0);
+    }
+    sum += warp_sum(v);
+  }
+}
+
+// the consume form's work on tile t, whose warp holds pixels i0 + 32 q
+// (this lane's) with slots s, coordinates x, y and angles an
+template <int THREADS, int ITEMS>
+__device__ __forceinline__ void consume_tile(const GateArgs& a, int64_t t,
+                                             int64_t i0, const int (&s)[ITEMS],
+                                             const float (&x)[ITEMS],
+                                             const float (&y)[ITEMS],
+                                             const float (&an)[ITEMS]) {
+  constexpr int kWarps = THREADS / 32;
+  constexpr int64_t kTile = THREADS * ITEMS;
+  __shared__ int s_warp[kWarps];
+  __shared__ int s_base;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int64_t n = a.n;
+  // the survivors and their count in the warp
+  unsigned m[ITEMS];
+  int cnt = 0;
+#pragma unroll
+  for (int q = 0; q < ITEMS; ++q) {
+    bool alive = i0 + 32 * q < n;
+    if (alive && s[q] < a.C) {
+      const float4 ra = a.tab[2 * (int64_t)s[q]];
+      const float4 rb = a.tab[2 * (int64_t)s[q] + 1];
+      alive = gate_row(ra, rb, x[q], y[q], an[q], 1.f, a.cos_tol) == 0.f;
+    }
+    m[q] = __ballot_sync(kFull, alive);
+    cnt += __popc(m[q]);
+  }
+  // the survivors' payload, loaded while the tile's offset is found
+  int64_t id[ITEMS];
+  float mg[ITEMS];
+#pragma unroll
+  for (int q = 0; q < ITEMS; ++q) {
+    const bool own = m[q] >> lane & 1u;
+    id[q] = own ? a.idx[i0 + 32 * q] : 0;
+    mg[q] = own ? a.mag[i0 + 32 * q] : 0.f;
+  }
+  if (lane == 0) s_warp[warp] = cnt;
+  __syncthreads();
+  if (warp == 0) {
+    // the warps' offsets in the tile, the tile's count and its offset
+    const int v = lane < kWarps ? s_warp[lane] : 0;
+    int inc = v;
+#pragma unroll
+    for (int d = 1; d < kWarps; d <<= 1) {
+      const int o = __shfl_up_sync(kFull, inc, d);
+      if (lane >= d) inc += o;
+    }
+    const int agg = __shfl_sync(kFull, inc, kWarps - 1);
+    if (lane < kWarps) s_warp[lane] = inc - v;
+    int base = 0;
+    if (t > 0) {
+      if (lane == 0)
+        post_status(a.status + t, status_word(a.epoch, false, agg));
+      base = look_back(a.status, t, a.epoch, lane);
+    }
+    if (lane == 0) {
+      post_status(a.status + t, status_word(a.epoch, true, base + agg));
+      s_base = base;
+      if ((t + 1) * kTile >= n) *a.count = base + agg;
+    }
+  }
+  __syncthreads();
+  // each survivor at its rank: consecutive lanes on consecutive places
+  int64_t r = (int64_t)s_base + s_warp[warp];
+  const unsigned below = (1u << lane) - 1u;
+#pragma unroll
+  for (int q = 0; q < ITEMS; ++q) {
+    if (m[q] >> lane & 1u) {
+      const int64_t o = r + __popc(m[q] & below);
+      a.idx_out[o] = id[q];
+      a.mag_out[o] = mg[q];
+      a.ang_out[o] = an[q];
+    }
+    r += __popc(m[q]);
+  }
+}
+
+template <bool COMPACT, int THREADS, int ITEMS>
+__global__ void __launch_bounds__(THREADS) gate_kernel(const GateArgs a) {
+  constexpr int64_t kTile = THREADS * ITEMS;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, C = a.C;
+  const int64_t n = a.n;
+  for (int64_t t = blockIdx.x; t * kTile < n; t += gridDim.x) {
+    const int64_t i0 = t * kTile + (int64_t)warp * 32 * ITEMS + lane;
+    int s[ITEMS];
+    float x[ITEMS], y[ITEMS], an[ITEMS];
+#pragma unroll
+    for (int q = 0; q < ITEMS; ++q) {
+      const int64_t i = i0 + 32 * q;
+      const bool in = i < n;
+      s[q] = in ? a.slot[i] : C;
+      x[q] = in ? a.xs[i] : 0.f;
+      y[q] = in ? a.ys[i] : 0.f;
+      an[q] = in ? a.ang[i] : 0.f;
+    }
+    if constexpr (COMPACT) {
+      consume_tile<THREADS, ITEMS>(a, t, i0, s, x, y, an);
+    } else {
+#pragma unroll
+      for (int q = 0; q < ITEMS; ++q) {
+        const int64_t i = i0 + 32 * q;
+        if (i < n)
+          a.newpix[i] = gate_one(a.tab, s[q], C, x[q], y[q], an[q], a.pix[i],
+                                 a.dump_keep != 0, a.cos_tol);
+      }
+    }
   }
 }
 
@@ -947,10 +1152,80 @@ extern "C" int l3d_gate_pixels(const int* slot, const float* xs,
                                float* newpix, void* stream) {
   if (n < 0 || C < 0) return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
-  gate_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
-      slot, xs, ys, ang, pix, reinterpret_cast<const float4*>(tables), n, C,
-      dump_keep != 0, cos_tol, newpix);
+  static int fill = -1;
+  if (fill < 0) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, gate_kernel<false, kThreads, 1>, kThreads, 0);
+    if (err != cudaSuccess) return (int)err;
+    fill = per_sm * sms;
+  }
+  GateArgs a{};
+  a.slot = slot, a.xs = xs, a.ys = ys, a.ang = ang, a.pix = pix;
+  a.tab = reinterpret_cast<const float4*>(tables);
+  a.n = n, a.C = C, a.dump_keep = dump_keep, a.cos_tol = cos_tol;
+  a.newpix = newpix;
+  const int64_t tiles = (n + kThreads - 1) / kThreads;
+  gate_kernel<false, kThreads, 1><<<(unsigned)(tiles < fill ? tiles : fill),
+                                    kThreads, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+namespace {
+
+// the consume form at a layout; status: at least one word per tile of
+// THREADS * ITEMS pixels; epoch: not 0 and not used by an earlier
+// call on these words (their buffer starts zeroed)
+template <int THREADS, int ITEMS>
+int launch_consume(const GateArgs& a, int64_t status_len,
+                   cudaStream_t stream) {
+  constexpr int64_t tile = THREADS * ITEMS;
+  const int64_t tiles = (a.n + tile - 1) / tile;
+  if (a.n < 0 || a.C < 0 || tiles > status_len || a.epoch == 0)
+    return (int)cudaErrorInvalidValue;
+  if (a.n == 0) return 0;
+  gate_kernel<true, THREADS, ITEMS><<<(unsigned)tiles, THREADS, 0, stream>>>(
+      a);
+  return (int)cudaGetLastError();
+}
+
+GateArgs consume_args(const int* slot, const float* xs, const float* ys,
+                      const float* ang, const int64_t* idx, const float* mag,
+                      const float* tables, int n, int C, float cos_tol,
+                      unsigned long long* status, unsigned epoch,
+                      int64_t* idx_out, float* mag_out, float* ang_out,
+                      int* count) {
+  GateArgs a{};
+  a.slot = slot, a.xs = xs, a.ys = ys, a.ang = ang;
+  a.tab = reinterpret_cast<const float4*>(tables);
+  a.n = n, a.C = C, a.cos_tol = cos_tol;
+  a.idx = idx, a.mag = mag, a.idx_out = idx_out, a.mag_out = mag_out;
+  a.ang_out = ang_out, a.count = count, a.status = status, a.epoch = epoch;
+  return a;
+}
+
+}  // namespace
+
+extern "C" int l3d_consume_survivors(
+    const int* slot, const float* xs, const float* ys, const float* ang,
+    const int64_t* idx, const float* mag, const float* tables, int n, int C,
+    int items, float cos_tol, unsigned long long* status, int64_t status_len,
+    unsigned epoch, int64_t* idx_out, float* mag_out, float* ang_out,
+    int* count, void* stream) {
+  const GateArgs a =
+      consume_args(slot, xs, ys, ang, idx, mag, tables, n, C, cos_tol, status,
+                   epoch, idx_out, mag_out, ang_out, count);
+  if (items == 2)
+    return launch_consume<kConsumeThreads, 2>(a, status_len,
+                                              (cudaStream_t)stream);
+  if (items == 8)
+    return launch_consume<kConsumeThreads, 8>(a, status_len,
+                                              (cudaStream_t)stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" int l3d_band_counts(const int* slot, const float* xs,

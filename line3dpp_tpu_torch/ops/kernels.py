@@ -11,8 +11,9 @@ Every C entry point launches on the stream it is given, allocates nothing,
 and returns ``cudaGetLastError()``; :func:`launch` raises when that is not 0.
 ``LAUNCHES`` counts the calls that launched a kernel, per wrapper, in
 ``ops/matching.py`` (K1), ``ops/scoring.py`` (K2), ``ops/affinity.py`` (K3),
-``ops/lsd_cc.py`` (K4), ``ops/lsd_gather.py`` (K5, K6) and ``ops/lsd_fit.py``
-(K7-K11).
+``ops/lsd_cc.py`` (K4), ``ops/lsd_gather.py`` (K5, K6: ``gather_labels``
+and ``gather_merged``) and ``ops/lsd_fit.py`` (K7-K11; K9:
+``gate_pixels`` and ``consume_survivors``).
 """
 
 from __future__ import annotations
@@ -36,11 +37,12 @@ LIB_NAME = "libl3dkernels.so"
 
 LAUNCHES = {"match_pairs": 0, "score_matches": 0,
             "gather_target_estimates": 0, "cc_tiles": 0,
-            "apply_merge_dense": 0, "gather_labels": 0, "moments": 0,
-            "gate_moments": 0, "gate_pixels": 0, "band_counts": 0,
-            "extents": 0}
+            "apply_merge_dense": 0, "gather_labels": 0, "gather_merged": 0,
+            "moments": 0, "gate_moments": 0, "gate_pixels": 0,
+            "consume_survivors": 0, "band_counts": 0, "extents": 0}
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
+_U = ctypes.c_uint
 _SIGNATURES = {
     # 13 inputs (the first the (V, S, 4) target table), P S knn,
     # epipolar_overlap, 6 outputs, stream
@@ -57,6 +59,8 @@ _SIGNATURES = {
     "l3d_apply_merge_dense": [_P] * 2 + [_L] + [_P] + [_P],
     # src idx, n, out, stream
     "l3d_gather_labels": [_P] * 2 + [_L] + [_P] + [_P],
+    # lab T idx, total n, out, stream
+    "l3d_gather_merged": [_P] * 3 + [_L] * 2 + [_P] + [_P],
     # slot xs ys mag pix starts, n C threads, out, stream
     "l3d_moments": [_P] * 6 + [_I] * 3 + [_P] + [_P],
     # slot xs ys ang mag pix tables starts, n C threads dump_keep, cos_tol,
@@ -64,6 +68,10 @@ _SIGNATURES = {
     "l3d_gate_moments": [_P] * 8 + [_I] * 4 + [_F] + [_P] * 2 + [_P],
     # slot xs ys ang pix tables, n C dump_keep, cos_tol, newpix, stream
     "l3d_gate_pixels": [_P] * 6 + [_I] * 3 + [_F] + [_P] + [_P],
+    # slot xs ys ang idx mag tables, n C items, cos_tol, status status_len
+    # epoch, idx mag ang count outputs, stream
+    "l3d_consume_survivors": ([_P] * 7 + [_I] * 3 + [_F] + [_P, _L, _U]
+                              + [_P] * 4 + [_P]),
     # slot xs ys pix tables bands, n C B, scratch out, stream
     "l3d_band_counts": [_P] * 6 + [_I] * 3 + [_P] * 2 + [_P],
     # slot xs ys pix tables starts, n C, out, stream

@@ -13,7 +13,8 @@ has Pallas kernels:
 2. ``_lsd_round``, three times with tolerances 22.5, 11.25 and 5.625
    degrees: connected components of the aligned-pixel graph
    (``ops/lsd_cc``: kernel K4 and the border merge), the merged label of
-   every listed pixel (``ops/lsd_gather``: kernels K5 and K6), the active
+   every listed pixel in one gather (``ops/lsd_gather``: kernel K6 with the
+   map; the JAX package's dense pass K5 is not needed), the active
    pixels sorted by component, the >= 5-pixel run filter, rectangle fits from
    weighted moments and projection extents (``ops/lsd_fit``: kernels K7
    and K11), two density-refine iterations (kernel K8), the NFA test
@@ -21,7 +22,8 @@ has Pallas kernels:
    cascade of the rectangles that fail it (lsd.cpp ``rect_improve``: pixel
    counts in 15 reduced bands, kernel K10, and a retry at half the angle
    tolerance, kernel K9), and the consumption of accepted rectangles'
-   pixels (kernel K9) before the next round, which runs on the surviving
+   pixels (K9's consume form: gate and compact in one pass, one host read
+   of the count) before the next round, which runs on the surviving
    pixels only.
 3. ``detect`` / ``detect_batch``: grayscale conversion, the optional
    ``max_width`` downscale, upload and the rounds; segments in original
@@ -352,8 +354,7 @@ def _pixel_list(angle, active, idx, mag_c, ang_c, tol: float,
     n = idx.numel()
     lab_d, unconverged = lsd_cc.cc_tiles(angle, active, tol, tile)
     T, n_links = lsd_cc.merge_tile_labels(lab_d, angle, active, tol, tile)
-    lab_c = lsd_gather.gather_labels(
-        lsd_gather.apply_merge_dense(lab_d, T).reshape(-1), idx)
+    lab_c = lsd_gather.gather_merged(lab_d, T, idx)
 
     # sort the pixels by component label; the stable sort keeps each
     # component's pixels in list order
@@ -626,11 +627,9 @@ def _lsd_round(angle, active, idx, mag_c, ang_c, tol: float, consume: bool,
     survivors = None
     if consume:
         # remove every aligned pixel within an accepted rectangle's band
-        consumed = lsd_fit.gate_pixels(
-            slot, xs, ys, ang_s, torch.ones_like(pix),
-            _consume_tables(f, ok, res), False, COS_GATE, C) != 0.0
-        alive = ~consumed
-        survivors = (idx_s[alive], mag_s[alive], ang_s[alive])
+        survivors = lsd_fit.consume_survivors(
+            slot, xs, ys, idx_s, mag_s, ang_s, _consume_tables(f, ok, res),
+            COS_GATE, C)
 
     # endpoints in subsampled coordinates -> original (/SCALE, lsd.cpp
     # 2103-2108); a rescued segment shifts onto its band's centre line

@@ -15,6 +15,10 @@ The five passes (JAX package: ``line3dpp_tpu/ops/lsd_fit.py``):
   band ``|w_proj - center| <= gate`` and its level-line angle is aligned
   with the component axis (``|cos(ang) ct + sin(ang) st| >= cos_tol``);
   dump pixels are kept when ``dump_keep`` and ``pix != 0``;
+* :func:`consume_survivors` (K9's consume form): the (idx, mag, ang) of the
+  pixels that the consume gate does not take, in list order: a pixel of a
+  real component is consumed when K9's gate keeps it with ``pix = 1``, a
+  dump pixel never is.  The kernel gates and compacts in one pass;
 * :func:`gate_moments` (K8): K9, then K7 on the gated pixels, in one pass;
 * :func:`band_counts` (K10): with the table columns 4 and 5 holding the
   rectangle's ``mid`` and ``width``, per component and band ``(lo_w, lo_c,
@@ -51,6 +55,12 @@ TABLE_COLS = 8
 FIT_ITEMS = 4
 FIT_THREADS = 256
 FIT_THREADS_LONG = 512
+# the consume form of kernel K9 (csrc/lsd_fit.cu gate_kernel<true>): threads
+# a block; a block compacts one tile of threads x pixels a thread
+# (consume_items)
+CONSUME_THREADS = 256
+CONSUME_ITEMS_SHORT = 2
+CONSUME_ITEMS_LONG = 8
 MAX_BANDS = 16
 # the symmetric width cuts 2 |w_proj - mid| <= width - 0.5 (b + 1)
 SYM_BANDS = tuple((-1.0, 0.5 * (b + 1), 1.0, -0.5 * (b + 1))
@@ -95,6 +105,27 @@ def gate_pixels_plain(slot, xs, ys, ang, pix, tables, dump_keep: bool,
     keep = (pix != 0.0) & (w_proj.abs() <= gate) & aligned
     dump = (pix != 0.0) if dump_keep else torch.zeros_like(keep)
     return torch.where(valid, keep, dump).to(torch.float32)
+
+
+def consume_survivors_plain(slot, xs, ys, idx_s, mag_s, ang_s, tables,
+                            cos_tol: float, C: int):
+    consumed = gate_pixels_plain(slot, xs, ys, ang_s, torch.ones_like(xs),
+                                 tables, False, cos_tol, C) != 0.0
+    alive = ~consumed
+    return idx_s[alive], mag_s[alive], ang_s[alive]
+
+
+def consume_items(n: int, sms: int) -> int:
+    """The pixels a thread of K9's consume form for a list of ``n`` on a
+    card of ``sms`` SMs, which its wrapper passes to the kernel: a list that
+    fills fewer than one long tile an SM (the facade's, of 45k pixels) is
+    cut into short tiles, so it spreads over more blocks; a longer one (real
+    photos' round 1, millions) takes long tiles, fewer look-backs.  On an
+    H100 80GB HBM3 at 700 W, by ``tests/measure_torch_k6_k9.py
+    --consume-layouts``: 4.8 against 5.7 µs on the facade, 55.3 against
+    64.7 µs at 57% active."""
+    long_list = sms * CONSUME_THREADS * CONSUME_ITEMS_LONG
+    return CONSUME_ITEMS_LONG if n >= long_list else CONSUME_ITEMS_SHORT
 
 
 def _bands_tensor(bands, device) -> torch.Tensor:
@@ -330,6 +361,67 @@ def gate_pixels_cuda(slot, xs, ys, ang, pix, tables, dump_keep: bool,
     return newpix
 
 
+# per device and stream: the consume form's status words and the epoch of
+# their last call (csrc/lsd_fit.cu look_back); calls on one stream run in
+# order, so they share the words
+_CONSUME_STATUS: dict = {}
+
+
+def _consume_status(dev: torch.device, stream: int, tiles: int):
+    """The status words for ``tiles`` tiles and a new epoch.  The buffer is
+    zeroed where it is made (epoch 0 is never passed), so no call needs a
+    memset."""
+    key = (dev.index, stream)
+    words, epoch = _CONSUME_STATUS.get(key, (None, 0))
+    epoch += 1
+    if words is None or words.numel() < tiles or epoch >= 2**32:
+        words = torch.zeros(max(tiles, 64), dtype=torch.int64, device=dev)
+        epoch = 1
+    _CONSUME_STATUS[key] = (words, epoch)
+    return words, epoch
+
+
+def consume_survivors_into(slot, xs, ys, idx_s, mag_s, ang_s, tables,
+                           cos_tol: float, C: int, idx, mag, ang,
+                           count) -> None:
+    """Kernel K9's consume form into preallocated outputs: (n,) ``idx``,
+    ``mag``, ``ang`` and a (1,) int32 ``count``, with no host sync (the
+    first ``count`` entries are the survivors)."""
+    n, dev = _check_pixels(C, tables, slot=slot, xs=xs, ys=ys, ang=ang_s,
+                           mag=mag_s)
+    kernels.check("idx_s", idx_s, torch.int64, (n,), dev)
+    kernels.check("idx", idx, torch.int64, (n,), dev)
+    for name, t in (("mag", mag), ("ang", ang)):
+        kernels.check(name, t, torch.float32, (n,), dev)
+    kernels.check("count", count, torch.int32, (1,), dev)
+    if n == 0:
+        count.zero_()
+        return
+    items = consume_items(
+        n, torch.cuda.get_device_properties(dev).multi_processor_count)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    words, epoch = _consume_status(
+        dev, stream, -(-n // (CONSUME_THREADS * items)))
+    p = kernels.ptr
+    kernels.launch("l3d_consume_survivors", p(slot), p(xs), p(ys), p(ang_s),
+                   p(idx_s), p(mag_s), p(tables), n, C, items,
+                   ctypes.c_float(cos_tol), p(words), words.numel(), epoch,
+                   p(idx), p(mag), p(ang), p(count), ctypes.c_void_p(stream))
+    kernels.LAUNCHES["consume_survivors"] += 1
+
+
+def consume_survivors_cuda(slot, xs, ys, idx_s, mag_s, ang_s, tables,
+                           cos_tol: float, C: int):
+    """Kernel K9's consume form: one launch, then one host read of the
+    count; returns views of the outputs' first ``count`` entries."""
+    idx, mag, ang = (torch.empty_like(t) for t in (idx_s, mag_s, ang_s))
+    count = torch.empty(1, dtype=torch.int32, device=slot.device)
+    consume_survivors_into(slot, xs, ys, idx_s, mag_s, ang_s, tables,
+                           cos_tol, C, idx, mag, ang, count)
+    k = int(count) if idx.numel() else 0
+    return idx[:k], mag[:k], ang[:k]
+
+
 def band_counts_cuda(slot, xs, ys, pix, tables, C: int,
                      bands=SYM_BANDS) -> torch.Tensor:
     """Kernel K10."""
@@ -380,6 +472,18 @@ def gate_pixels(slot, xs, ys, ang, pix, tables, dump_keep: bool,
                                 cos_tol, C)
     return gate_pixels_plain(slot, xs, ys, ang, pix, tables, dump_keep,
                              cos_tol, C)
+
+
+def consume_survivors(slot, xs, ys, idx_s, mag_s, ang_s, tables,
+                      cos_tol: float, C: int):
+    """``(idx, mag, ang)`` of the pixels that the consume gate (``tables``,
+    K9's test on ``ang_s`` with ``pix = 1``) does not take, in list order;
+    their count is ``idx.numel()``."""
+    if slot.is_cuda:
+        return consume_survivors_cuda(slot, xs, ys, idx_s, mag_s, ang_s,
+                                      tables, cos_tol, C)
+    return consume_survivors_plain(slot, xs, ys, idx_s, mag_s, ang_s, tables,
+                                   cos_tol, C)
 
 
 def gate_moments(slot, xs, ys, ang, mag, pix, tables, dump_keep: bool,

@@ -28,6 +28,14 @@ the CPU.
   pixel is gated once and every component's row written once, on lists
   with short, tile-sized, long and empty components and dump pixels
   anywhere, for several block counts.
+- K9's consume form (``csrc/lsd_fit.cu`` ``gate_kernel<true>``) compacts
+  the survivors in one pass: each block ranks one tile's survivors by warp
+  ballots and a prefix over the warps, and finds the tile's offset by
+  decoupled look-back over the earlier tiles' status words.
+  ``compact_split`` below is that split; here every survivor is written
+  once, at its place in list order, and the count is right, for empty
+  lists, lists below one tile and of whole tiles, all survivors or none,
+  several tile shapes and any mix of posted prefixes.
 """
 
 import importlib.util
@@ -627,3 +635,191 @@ def test_k7_k8_rows_are_the_sums_over_the_run_table(name):
     np8_b, mom8_b = lsd_fit.gate_moments(*args)
     assert torch.equal(np8, np8_b) and torch.equal(mom8, mom8_b)
     torch.testing.assert_close(mom8, by_run(np8), rtol=1e-6, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# K9's consume form: the tiles and the look-back of the compaction
+# ---------------------------------------------------------------------------
+
+# the SMs of an H100, on which the layout rule was measured
+H100_SMS = 132
+
+
+def compact_split(alive: torch.Tensor,
+                  threads: int = lsd_fit.CONSUME_THREADS,
+                  items: int | None = None, posted=None) -> dict:
+    """The split of the work in the consume form of kernel K9
+    (``gate_kernel<true>`` in ``csrc/lsd_fit.cu``) over a list whose
+    survivors are ``alive``.
+
+    A block compacts one tile of ``threads * items`` pixels (``items``:
+    ``lsd_fit.consume_items`` on an H100's SMs when None); warp w of the
+    tile holds its pixels
+    ``32 * items * w ..``, item q of lane l the warp's pixel ``32 q + l``.
+    Each warp ballots its survivors item by item, the warps' counts are
+    prefixed in shared memory, and the tile
+    finds its offset by decoupled look-back: it posts its count at once,
+    then reads the words of the tiles before it, 32 at a time from the
+    nearest, and sums them back to the nearest word that holds an
+    inclusive prefix.  ``posted`` (bool per tile, tile 0 always true) says
+    which tiles had posted their inclusive prefix when the later tiles read
+    their words; the others show their count only.  None: a seeded random
+    mix.
+
+    Returns, per pixel: ``rank`` (its place in the output, -1 for a
+    consumed pixel), ``tile``, ``warp``, ``item``, ``lane``; per tile:
+    ``aggregate`` (its survivors), ``prefix`` (the look-back's sum) and
+    ``reads`` (status words read); and ``count``, the survivors the last
+    tile writes."""
+    alive = alive.bool().cpu()
+    n = alive.numel()
+    items = lsd_fit.consume_items(n, H100_SMS) if items is None else items
+    span = threads * items
+    tiles = -(-n // span)
+    warps = threads // 32
+    a = torch.zeros(tiles * span, dtype=torch.bool)
+    a[:n] = alive
+    a = a.reshape(tiles, warps, items, 32).long()
+    # the ranks inside the warp: earlier items, then earlier lanes
+    per_item = a.sum(3)
+    in_warp = (per_item.cumsum(2) - per_item)[..., None] + a.cumsum(3) - a
+    per_warp = per_item.sum(2)
+    warp_off = per_warp.cumsum(1) - per_warp
+    aggregate = per_warp.sum(1)
+    if posted is None:
+        g = torch.Generator().manual_seed(tiles)
+        posted = torch.rand(tiles, generator=g) < 0.5
+    posted = torch.as_tensor(posted, dtype=torch.bool).clone()
+    if tiles:
+        posted[0] = True
+    prefix = torch.zeros(tiles, dtype=torch.long)
+    reads = torch.zeros(tiles, dtype=torch.long)
+    for t in range(1, tiles):
+        total, k = 0, t - 1
+        while True:
+            window = torch.arange(k, k - 32, -1)
+            window = window[window >= 0]
+            reads[t] += window.numel()
+            word = torch.where(posted[window], prefix[window]
+                               + aggregate[window], aggregate[window])
+            hit = torch.nonzero(posted[window])
+            if hit.numel():
+                total += int(word[:int(hit[0, 0]) + 1].sum())
+                break
+            total += int(word.sum())
+            k -= 32
+        prefix[t] = total
+    rank = (prefix[:, None, None, None] + warp_off[:, :, None, None]
+            + in_warp).reshape(-1)[:n]
+    pos = torch.arange(n)
+    return dict(rank=torch.where(alive, rank, -1), tile=pos // span,
+                warp=pos % span // (32 * items),
+                item=pos % (32 * items) // 32, lane=pos % 32,
+                aggregate=aggregate, prefix=prefix, reads=reads,
+                count=int(prefix[-1] + aggregate[-1]) if tiles else 0)
+
+
+def _alive_case(name, tile):
+    rng = np.random.default_rng(sum(map(ord, name)) + tile)
+    n = {"empty": 0, "below_tile": tile - 37, "one_tile": tile,
+         "whole_tiles": 5 * tile, "ragged": 3 * tile + 5,
+         "many_tiles": 70 * tile + 11}.get(name, 4 * tile + 9)
+    if name == "all_alive":         # a list of dump pixels only
+        return torch.ones(n, dtype=torch.bool)
+    if name == "none_alive":
+        return torch.zeros(n, dtype=torch.bool)
+    # runs of consumed pixels (accepted components) between survivors
+    return torch.from_numpy(np.repeat(rng.uniform(size=n // 7 + 1) < 0.6,
+                                      7)[:n].copy())
+
+
+ALIVE_CASES = ["empty", "below_tile", "one_tile", "whole_tiles", "ragged",
+               "many_tiles", "all_alive", "none_alive"]
+
+
+@pytest.mark.parametrize("layout", [(lsd_fit.CONSUME_THREADS,
+                                     lsd_fit.CONSUME_ITEMS_LONG),
+                                    (lsd_fit.CONSUME_THREADS,
+                                     lsd_fit.CONSUME_ITEMS_SHORT), (32, 1),
+                                    (64, 3)],
+                         ids=lambda v: f"{v[0]}threads-{v[1]}items")
+@pytest.mark.parametrize("posted", ["random", "all", "first_only"])
+@pytest.mark.parametrize("name", ALIVE_CASES)
+def test_k9_consume_split_writes_each_survivor_once_in_order(name, posted,
+                                                             layout):
+    """Every survivor gets one place, its rank in list order, no consumed
+    pixel gets one, and the count the last tile writes is the number of
+    survivors, whichever tiles had posted their inclusive prefix when the
+    later ones looked back; a tile reads at most its predecessors' words,
+    32 at a time back to the nearest posted one."""
+    threads, items = layout
+    tile = threads * items
+    alive = _alive_case(name, tile)
+    n = alive.numel()
+    tiles = -(-n // tile)
+    flags = {"random": None, "all": torch.ones(tiles, dtype=torch.bool),
+             "first_only": torch.zeros(tiles, dtype=torch.bool)}[posted]
+    split = compact_split(alive, threads, items, flags)
+    rank = split["rank"]
+    k = int(alive.sum())
+    assert split["count"] == k
+    assert torch.equal(rank[alive], torch.arange(k))
+    assert (rank[~alive] == -1).all()
+    # the pixel's place in its tile: warp-major, then item, then lane
+    pos = torch.arange(n)
+    assert torch.equal(split["tile"] * tile + split["warp"] * 32 * items
+                       + split["item"] * 32 + split["lane"], pos)
+    assert (split["warp"] < threads // 32).all()
+    agg = split["aggregate"]
+    assert torch.equal(split["prefix"], agg.cumsum(0) - agg)
+    t = torch.arange(tiles)
+    if posted == "all":
+        assert torch.equal(split["reads"], t.clamp(max=32))
+    if posted == "first_only":
+        assert torch.equal(split["reads"], t)
+    assert (split["reads"] <= t).all()
+    if name == "many_tiles" and posted == "first_only":
+        assert int(split["reads"].max()) > 32
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_k9_consume_split_places_the_plain_survivors(seed):
+    """The consume form's ranks, applied to the detector-like list of
+    ``random_sorted_case`` gated by the plain consume gate, give
+    ``consume_survivors``' output (the plain version, on the CPU)."""
+    rng = np.random.default_rng(seed)
+    C = 256
+    slot, xs, ys, mag, _ = random_sorted_case(rng, n=9000)
+    tables, ang = random_tables(rng, C, len(slot))
+    idx_s = np.sort(rng.choice(1 << 22, len(slot), replace=False))
+    t = [torch.from_numpy(v) for v in (slot, xs, ys, idx_s, mag, ang,
+                                       tables)]
+    got = lsd_fit.consume_survivors(*t, lsd.COS_GATE, C)
+    alive = lsd_fit.gate_pixels(t[0], t[1], t[2], t[5],
+                                torch.ones(len(slot)), t[6], False,
+                                lsd.COS_GATE, C) == 0.0
+    split = compact_split(alive)
+    assert split["count"] == got[0].numel() < len(slot)
+    for g, src in zip(got, (t[3], t[4], t[5])):
+        out = torch.empty(split["count"], dtype=src.dtype)
+        out[split["rank"][alive]] = src[alive]
+        assert torch.equal(out, g)
+
+
+@pytest.mark.parametrize("sms", [H100_SMS, 114, 16])
+def test_k9_consume_layout_follows_the_list_length(sms):
+    """Lists shorter than one long tile an SM (on an H100 the facade's
+    round 1: 45,347 pixels) take short tiles, longer ones (real photos'
+    density) long tiles, whatever the card's SM count; the split's default
+    follows the same rule on an H100."""
+    long_ = sms * lsd_fit.CONSUME_THREADS * lsd_fit.CONSUME_ITEMS_LONG
+    short, long_items = lsd_fit.CONSUME_ITEMS_SHORT, lsd_fit.CONSUME_ITEMS_LONG
+    assert lsd_fit.consume_items(2801668, sms) == long_items
+    assert lsd_fit.consume_items(long_ - 1, sms) == short
+    assert lsd_fit.consume_items(long_, sms) == long_items
+    assert lsd_fit.consume_items(45347, H100_SMS) == short
+    alive = torch.ones(45347, dtype=torch.bool)
+    split = compact_split(alive)
+    tile = lsd_fit.CONSUME_THREADS * lsd_fit.CONSUME_ITEMS_SHORT
+    assert int(split["tile"].max()) == (45347 - 1) // tile
+    assert int(split["item"].max()) == lsd_fit.CONSUME_ITEMS_SHORT - 1

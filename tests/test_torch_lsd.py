@@ -4,8 +4,10 @@ Inputs are made with numpy and go through both packages.  Where the JAX
 function reaches a Pallas kernel it runs in interpret mode, as the JAX
 package's own tests run it.  Tolerances, with what was measured here:
 
-* K4 (tile labels), the border merge, K5/K6 (the label gathers) and K9
-  (gate): exact.
+* K4 (tile labels), the border merge, K5/K6 (the label gathers, and K6's
+  merged gather against both of the JAX package's forms) and K9 (gate,
+  and its consume form against the gate and the JAX package's stable
+  survivors-first partition): exact.
 * K7/K8 sums: rtol 1e-5.  The port sums the float32 terms in float64, the
   interpret-mode kernel in float32 one-hot matrix products (measured
   largest relative difference ~1e-6).
@@ -183,6 +185,76 @@ def test_k6_gather_labels_matches_jax(span):
         np.asarray(want)[perm.numpy()])
 
 
+def _merged_forms(jlab, jT, tile, idx):
+    """The JAX package's two forms of the merged labels at sorted ``idx``
+    (``line3dpp_tpu/ops/lsd.py`` ``_lsd_round``), the Pallas kernels in
+    interpret mode: ``(dense, round1, later)``, K5's dense grid, then round
+    1's ``gather_sorted`` of it and rounds 2-3's ``gather_sorted`` of the
+    tile labels followed by ``T`` (INVALID where the label is)."""
+    n = len(idx)
+    padded = np.full(-(-n // jgather.CHUNK) * jgather.CHUNK, idx[-1],
+                     np.int32)
+    padded[:n] = idx
+    padded = jnp.asarray(padded)
+    jdense = jgather.apply_merge_dense(jlab, jT, tile, lsd_cc.INVALID,
+                                       interpret=True)
+    round1, ovf1 = jgather.gather_sorted(jdense.reshape(-1), padded,
+                                         win_rows=512, fill=-1, n_valid=n,
+                                         interpret=True)
+    raw, ovf2 = jgather.gather_sorted(jlab.reshape(-1), padded, win_rows=512,
+                                      fill=-1, n_valid=n, interpret=True)
+    later = jnp.where(raw >= lsd_cc.INVALID, lsd_cc.INVALID,
+                      jT[jnp.clip(raw, 0, jT.shape[0] - 1)])
+    assert int(ovf1) == 0 and int(ovf2) == 0
+    return (np.asarray(jdense), np.asarray(round1)[:n],
+            np.asarray(later)[:n])
+
+
+@pytest.mark.parametrize("grid", [_lines_grid, functools.partial(
+    _random_grid, 0), functools.partial(_random_grid, 5), functools.partial(
+    _blob_grid, 1)], ids=["lines", "random0", "random5", "blob"])
+def test_k6_gather_merged_matches_jax_forms(grid):
+    """K6's merged gather (what ``_pixel_list`` calls) at the active pixels
+    of the K4 grids, on the port's tile labels and border map (equal to
+    JAX's, ``test_k4_and_merge_match_jax``): JAX's round-1 form and its
+    rounds-2-3 form."""
+    angle, active, tol = grid()
+    lab, _ = lsd_cc.cc_tiles(*_t(angle, active), float(tol), TILE)
+    T, _ = lsd_cc.merge_tile_labels(lab, *_t(angle, active), float(tol),
+                                    TILE)
+    idx = torch.nonzero(torch.from_numpy(active).reshape(-1))[:, 0]
+    got = lsd_gather.gather_merged(lab, T, idx).numpy()
+    _, round1, later = _merged_forms(jnp.asarray(lab.numpy()),
+                                     jnp.asarray(T.numpy()), TILE,
+                                     idx.numpy())
+    np.testing.assert_array_equal(got, round1)
+    np.testing.assert_array_equal(got, later)
+    np.testing.assert_array_equal(got, lsd_gather.gather_labels(
+        lsd_gather.apply_merge_dense(lab, T).reshape(-1), idx).numpy())
+
+
+def test_k6_gather_merged_on_invalid_labels():
+    """Random tile-rooted labels, 30% INVALID and listed: INVALID where
+    the label is, exactly as JAX's K5 then a plain gather; the JAX
+    package's two gathered forms agree at the valid labels (its
+    ``gather_sorted`` carries values below 2^24 only, so it cannot return
+    INVALID: the JAX detector lists active pixels only)."""
+    rng = np.random.default_rng(13)
+    th, tw = 16, 256
+    lab = _tile_rooted_labels(rng, th, tw, 2 * th, 2 * tw)
+    T = rng.integers(0, 1 << 23, lab.size).astype(np.int32)
+    idx = np.sort(rng.choice(lab.size, lab.size // 3, replace=False))
+    got = lsd_gather.gather_merged(*_t(lab, T, idx)).numpy()
+    jdense, round1, later = _merged_forms(jnp.asarray(lab), jnp.asarray(T),
+                                          (th, tw), idx)
+    valid = lab.reshape(-1)[idx] != lsd_cc.INVALID
+    assert 0.2 < 1 - valid.mean() < 0.4
+    np.testing.assert_array_equal(got, jdense.reshape(-1)[idx])
+    np.testing.assert_array_equal(got[~valid], lsd_cc.INVALID)
+    np.testing.assert_array_equal(got[valid], round1[valid])
+    np.testing.assert_array_equal(got[valid], later[valid])
+
+
 # ---------------------------------------------------------------------------
 # K7, K8, K9, K11
 # ---------------------------------------------------------------------------
@@ -241,6 +313,54 @@ def test_k9_gate_and_k8_match_jax(fit_case, dump_keep, cos_tol):
     np.testing.assert_array_equal(newpix.numpy(), got9)
     np.testing.assert_allclose(mom.numpy(), np.asarray(jmom)[:, :c].T,
                                rtol=1e-5, atol=0)
+
+
+def _consume_tables(tables, case):
+    """The fit case's tables as consume tables: ``random`` as drawn (band
+    half-widths 0.5-6), ``gates_off`` a third of the components with gate
+    -1 (not accepted), ``all`` every band and angle wide enough to take
+    every pixel of a real component, ``none`` no component accepted."""
+    t = tables.copy()
+    if case == "gates_off":
+        t[::3, 4] = -1.0
+    elif case == "all":
+        t[:, 4] = lsd_fit.BIG
+    elif case == "none":
+        t[:, 4] = -1.0
+    return t
+
+
+@pytest.mark.parametrize("case", ["random", "gates_off", "all", "none"])
+def test_k9_consume_survivors_matches_jax(fit_case, case):
+    """K9's consume form: JAX's gate (``gate_pixels`` with pix = 1, no dump
+    pixel kept, interpret mode), then the stable survivors-first partition
+    of ``line3dpp_tpu/ops/lsd.py`` (``_consume``), mirrored in numpy;
+    exact, in list order."""
+    c, (slot, xs, ys, mag, _, tables, ang) = fit_case
+    rng = np.random.default_rng(21)
+    n = len(slot)
+    idx_s = np.sort(rng.choice(1 << 22, n, replace=False)).astype(np.int64)
+    tab = _consume_tables(tables, case)
+    cos_tol = -2.0 if case == "all" else float(lsd.COS_GATE)
+    got = lsd_fit.consume_survivors(*_t(slot, xs, ys, idx_s, mag, ang, tab),
+                                    cos_tol, c)
+    consumed = np.asarray(jfit.gate_pixels(
+        *map(jnp.asarray, (slot, xs, ys, ang, np.ones(n, np.float32))),
+        _jax_tables(tab), jnp.bool_(False), jnp.float32(cos_tol), c,
+        interpret=True)) != 0.0
+    alive = ~consumed
+    order = np.argsort(np.where(alive, 0, 1), kind="stable")
+    k = int(alive.sum())
+    for g, w in zip(got, (idx_s, mag, ang)):
+        np.testing.assert_array_equal(g.numpy(), w[order][:k])
+    dump = slot == c
+    assert dump.any() and alive[dump].all()
+    if case == "all":
+        assert k == int(dump.sum())
+    if case == "none":
+        assert k == n
+    if case in ("random", "gates_off"):
+        assert 0 < int(consumed.sum()) < n - int(dump.sum())
 
 
 # ---------------------------------------------------------------------------

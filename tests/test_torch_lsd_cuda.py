@@ -1,6 +1,7 @@
-"""Kernels K4-K11, LSD detection and line bundling on a CUDA device,
-against their plain PyTorch versions.  Marked ``gpu``; each test asks the
-``cuda`` fixture for the device and skips where there is none.
+"""Kernels K4-K11 (K6 also with the map, K9 also in its consume form), LSD
+detection and line bundling on a CUDA device, against their plain PyTorch
+versions.  Marked ``gpu``; each test asks the ``cuda`` fixture for the
+device and skips where there is none.
 
 On a machine with a card and without JAX (the root conftest imports JAX)::
 
@@ -199,6 +200,125 @@ def test_k5_k6_equal_plain(cuda):
     flat = dense.reshape(-1)
     assert torch.equal(lsd_gather.gather_labels_cuda(flat, idx),
                        lsd_gather.gather_labels_plain(flat, idx))
+
+
+@pytest.mark.parametrize("order", ["sorted", "shuffled", "offset", "odd",
+                                   "empty"])
+def test_k6_gather_merged_equals_plain_and_k5_k6(cuda, order):
+    """K6's merged gather on a detection-sized grid with INVALID labels
+    listed: bit for bit its plain version and K5 then K6; two calls give
+    the same bits.  ``offset`` reads a view one index in (no 16-byte
+    loads), ``odd`` an odd count."""
+    rng = np.random.default_rng(9)
+    hp, wp, th, tw = 256, 1024, 128, 512
+    lab = np.full((hp, wp), lsd_cc.INVALID, np.int32)
+    active = rng.uniform(size=(hp, wp)) < 0.4
+    ys, xs = np.nonzero(active)
+    lab[ys, xs] = ((ys // th * th + rng.integers(0, th, ys.size)) * wp
+                   + xs // tw * tw + rng.integers(0, tw, ys.size))
+    T = rng.integers(0, hp * wp, hp * wp).astype(np.int32)
+    lab_t, T_t = (torch.from_numpy(v).to(cuda) for v in (lab, T))
+    # every third listed pixel has no label
+    listed = active | (rng.uniform(size=(hp, wp)) < 0.2)
+    idx = torch.nonzero(torch.from_numpy(listed).reshape(-1))[:, 0].to(cuda)
+    if order == "shuffled":
+        idx = idx[torch.randperm(idx.numel(), device=cuda)]
+    elif order == "offset":
+        idx = idx[1:]
+    elif order == "odd":
+        idx = idx[:idx.numel() // 2 * 2 - 1]
+    elif order == "empty":
+        idx = idx[:0]
+    got = lsd_gather.gather_merged_cuda(lab_t, T_t, idx)
+    again = lsd_gather.gather_merged_cuda(lab_t, T_t, idx)
+    want = lsd_gather.gather_merged_plain(lab_t, T_t, idx)
+    k5k6 = lsd_gather.gather_labels_cuda(
+        lsd_gather.apply_merge_dense_cuda(lab_t, T_t).reshape(-1), idx)
+    assert torch.equal(got, want) and torch.equal(got, k5k6)
+    assert torch.equal(got, again)
+    if order != "empty":
+        assert bool((got == lsd_cc.INVALID).any())
+        assert bool((got != lsd_cc.INVALID).any())
+
+
+def _sms(dev) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def _consume_case(name, cuda):
+    """Detector-like lists for K9's consume form: the JAX tests' sorted
+    case and the large one with their tables as consume bands; ``all``:
+    every band takes its whole component; ``none``: no component
+    accepted; ``tiles``: a whole number of the kernel's tiles."""
+    if name in ("big", "all", "none", "tiles"):
+        slot, xs, ys, mag, _, tables, ang, c = _big_sorted_case(4)
+    else:
+        rng = np.random.default_rng(5)
+        c = 256
+        slot, xs, ys, mag, _ = random_sorted_case(rng)
+        tables, ang = random_tables(rng, c, len(slot))
+    if name == "tiles":
+        tile = lsd_fit.CONSUME_THREADS * lsd_fit.consume_items(
+            len(slot), _sms(cuda))
+        k = len(slot) // tile * tile
+        slot, xs, ys, mag, ang = (v[:k] for v in (slot, xs, ys, mag, ang))
+    tables = tables.copy()
+    tables[::4, 4] = -1.0                   # not accepted
+    if name == "all":
+        tables[:, 4] = lsd_fit.BIG
+    if name == "none":
+        tables[:, 4] = -1.0
+    rng = np.random.default_rng(len(slot))
+    idx_s = np.sort(rng.choice(1 << 23, len(slot), replace=False))
+    t = [torch.from_numpy(np.ascontiguousarray(v)).to(cuda)
+         for v in (slot, xs, ys, idx_s, mag, ang, tables)]
+    return t, c
+
+
+@pytest.mark.parametrize("name", ["small", "big", "all", "none", "tiles"])
+def test_k9_consume_equals_gate_and_mask(cuda, name):
+    """The consume form equals K9's gate_pixels form (pix = 1, no dump
+    pixel kept) followed by the mask, bit for bit, count included; the
+    plain version differs in at most 1e-5 n gate flips; two calls give
+    the same bits."""
+    (slot, xs, ys, idx_s, mag, ang, tab), c = _consume_case(name, cuda)
+    cos_tol = -2.0 if name == "all" else float(lsd.COS_GATE)
+    n = slot.numel()
+    got = lsd_fit.consume_survivors_cuda(slot, xs, ys, idx_s, mag, ang, tab,
+                                         cos_tol, c)
+    again = lsd_fit.consume_survivors_cuda(slot, xs, ys, idx_s, mag, ang,
+                                           tab, cos_tol, c)
+    alive = lsd_fit.gate_pixels_cuda(slot, xs, ys, ang, torch.ones_like(xs),
+                                     tab, False, cos_tol, c) == 0.0
+    for g, a, src in zip(got, again, (idx_s, mag, ang)):
+        assert torch.equal(g, src[alive]) and torch.equal(g, a)
+    plain = lsd_fit.gate_pixels_plain(slot, xs, ys, ang, torch.ones_like(xs),
+                                      tab, False, cos_tol, c) == 0.0
+    assert int((alive != plain).sum()) <= 1e-5 * n
+    dump = slot == c
+    if name == "all":
+        assert got[0].numel() == int(dump.sum())
+    if name == "none":
+        assert got[0].numel() == n
+    if name == "tiles":
+        tile = lsd_fit.CONSUME_THREADS * lsd_fit.consume_items(n, _sms(cuda))
+        assert n % tile == 0 and n > 0
+
+
+def test_k9_consume_calls_in_a_row(cuda):
+    """Lists that grow and shrink, one call after another on the stream
+    (a new epoch each, the status words reused or grown), and an empty
+    list: each output is the gate and the mask."""
+    (slot, xs, ys, idx_s, mag, ang, tab), c = _consume_case("big", cuda)
+    for k in (7, 300_000, 2049, 0, 2048 * 40, 1, 150_001):
+        args = [v[:k] for v in (slot, xs, ys, idx_s, mag, ang)]
+        got = lsd_fit.consume_survivors_cuda(*args, tab, float(lsd.COS_GATE),
+                                             c)
+        alive = lsd_fit.gate_pixels_cuda(
+            args[0], args[1], args[2], args[5], torch.ones_like(args[1]),
+            tab, False, float(lsd.COS_GATE), c) == 0.0
+        for g, src in zip(got, (args[3], args[4], args[5])):
+            assert torch.equal(g, src[alive])
 
 
 def test_fit_kernels_on_the_jax_tests_inputs(cuda):
@@ -647,9 +767,12 @@ def test_detect_on_cuda_matches_cpu(cuda):
     kernels.reset_launches()
     got = lsd.detect(img, device=cuda)
     torch.cuda.synchronize()
-    for name in ("cc_tiles", "apply_merge_dense", "gather_labels", "moments",
-                 "gate_moments", "gate_pixels", "extents"):
+    for name in ("cc_tiles", "gather_merged", "moments", "gate_moments",
+                 "consume_survivors", "extents"):
         assert kernels.LAUNCHES[name] > 0, name
+    # the detector runs no dense merge pass and no separate consume gate
+    for name in ("apply_merge_dense", "gather_labels", "gate_pixels"):
+        assert kernels.LAUNCHES[name] == 0, name
     want = lsd.detect(img, device="cpu")
     assert len(got) == len(want)
     np.testing.assert_allclose(got[np.lexsort(got.T)],
@@ -671,9 +794,10 @@ def test_add_images_on_cuda_launches_the_detection_kernels(cuda):
     torch.cuda.synchronize()
     counts = dict(kernels.LAUNCHES)
     assert counts["cc_tiles"] == 12 and counts["moments"] == 12
-    assert counts["apply_merge_dense"] == 12 and counts["gather_labels"] == 12
+    assert counts["gather_merged"] == 12 and counts["apply_merge_dense"] == 0
+    assert counts["gather_labels"] == 0
     assert counts["gate_moments"] == 24 and counts["extents"] == 36
-    assert counts["gate_pixels"] == 8
+    assert counts["consume_survivors"] == 8 and counts["gate_pixels"] == 0
     cpu = lt.Line3D(cfg, device="cpu")
     cpu.add_images(items)
     for i in range(4):
