@@ -18,14 +18,18 @@
    pairs x the pre-test's operations + survivors x the exact path's);
    then drives the path through the user entry points
    (``Line3D``, ``add_view``, ``match_images``, ``reconstruct_3d_lines``,
-   ``save_txt/stl/obj``) with every launch counter reset just before and
-   read just after; requires K1-K3 to have launched and the result to
-   match ``testdata/out/...__vis_3.txt`` (2276 lines) within 1% of its line
-   count and at count_f1 >= 0.99 (1% scene scale).
+   ``save_txt/stl/obj``, ``save_bin`` in the boost and npz formats) with
+   every launch counter reset just before and read just after; requires
+   K1-K3 to have launched, ``load_bin`` of both ``.bin`` files to give the
+   lines back, and the result to match ``testdata/out/...__vis_3.txt``
+   (2276 lines) within 1% of its line count and at count_f1 >= 0.99 (1%
+   scene scale).
 4. Images to lines: renders the 10 views of the synthetic facade at
    3072 x 2304 (``utils/synthetic``), checks them against the digests of
    ``tests/data/torch_scene2_3072_jax_reference.npz`` (written by
    ``tests/make_torch_lsd_reference.py`` with the JAX package on the CPU),
+   undistorts view 0 on the card against the port's CPU result
+   (``UNDISTORT_COEFFS``, timed),
    holds the detection kernels K4-K11 against their plain versions
    on view 0's round-1 inputs and on synthetic full-size grids at a real
    photo's density (``FULL_SIZE_ACTIVE``) and with long edges
@@ -47,14 +51,21 @@
    ``Config(lsd_rescue=True)`` (rescue cascade with K10, bundling on)
    against ``tests/data/torch_scene2_3072_rescue_jax_reference.npz``, with
    the number of rescued rectangles of every view (``RESCUE_*``) and every
-   kernel of detection required to have launched (``OFF_PATH`` are not).
-5. Prints one ``{"facade_rounds": ...}`` line (K6 with the map and K9's
+   kernel of detection required to have launched (``OFF_PATH`` are not);
+   then view 0 with the ``rect_improve`` knob alone, the one path of K10's
+   4-band form, with the counters reset and read around it
+   (``detect_rect_improve``).
+5. Prints one ``{"undistort": ...}`` line, one ``{"facade_rounds": ...}``
+   line (K6 with the map and K9's
    consume form on facade view 0's rounds, beside K5 + K6 and K9 with the
    torch tail they replace), one ``{"full_size": ...}`` line (the detection
    kernels on the synthetic grids), one ``{"kernels": [...]}`` line
    (``launches``: the rescue path's run; ``launches_default``: the
-   ``Config(optimize=False)`` run, which launches no K10 and no K9
-   gate_pixels form), the nvidia-smi line, and last ``{"ok": true,
+   ``Config(optimize=False)`` run, which launches no K10; neither
+   launches K9's gate_pixels form or K10's 4-band form;
+   ``launches_rect_improve``: the rect_improve detection), the nvidia-smi
+   line, and last
+   ``{"ok": true,
    "device": {...}}``.  Any failed check exits non-zero.
 
 ``--out DIR`` writes the build log (and the profiles) there; ``--profile``
@@ -149,12 +160,15 @@ FULL_SIZE_ACTIVE = (0.30, 0.47, 0.57)
 # what the full_size line keeps of each kernel's row
 FULL_SIZE_KEYS = ("name", "max_abs_err", "ms", "device_ms", "plain_ms",
                   "bound_ms", "bound_by", "library_ms", "library_device_ms")
-# kernels that detection does not launch (K5, and K6 without the map: the
-# merged gather does their work), and those only the rescue cascade does
-# (K10; K9's gate_pixels form, its p/2 retry: the consume step is K9's
-# consume form)
-OFF_PATH = ("apply_merge_dense", "gather_labels")
-RESCUE_ONLY = ("band_counts", "gate_pixels")
+# kernels that neither images path launches (K5, and K6 without the map:
+# the merged gather does their work; K9's gate_pixels form, which only the
+# seed_gate and side_split knobs run: the consume step is K9's consume
+# form, the rescue's p/2 retry a column of K10; K10's 4-band form, which
+# only the rect_improve knob runs), and those only the rescue cascade does
+# (K10's rescue form)
+OFF_PATH = ("apply_merge_dense", "gather_labels", "gate_pixels",
+            "band_counts")
+RESCUE_ONLY = ("rescue_counts",)
 # the long-edge grid: bands of this many rows of one angle, 47% active
 STRIPE_ROWS = 8
 STRIPE_ACTIVE = 0.47
@@ -596,6 +610,29 @@ def consume_bytes(slot, xs, ys, ang, tables, survivors: int) -> int:
     return nbytes(slot, xs, ys, ang, tables) + 28 * survivors
 
 
+def half_band_pixels(slot, xs, ys, pix, tables, C: int) -> int:
+    """The pixels whose angle K10's rescue form needs: those of a real
+    component with ``pix != 0`` inside the p/2 retry's band ``|w_proj -
+    mid| <= width / 2`` (``tables`` as ``lsd._band_tables`` builds them)."""
+    import torch
+    from line3dpp_tpu_torch.ops import lsd_fit
+
+    row, valid = lsd_fit._rows(slot, tables, C)
+    ct, st, cx, cy, mid, width = row[:, :6].unbind(1)
+    d = (-(xs - cx) * st + (ys - cy) * ct) - mid
+    g = torch.where(width > 0, 0.5 * width, -1.0)
+    return int((valid & (pix != 0) & (d.abs() <= g)).sum())
+
+
+def count_bytes(slot, xs, ys, pix, tables, bands, out,
+                ang_pixels: int) -> int:
+    """The bytes K10 must move: slot, x, y and pix of every pixel, the 4 B
+    angle of the ``ang_pixels`` inside the p/2 band (0 without that
+    column), the tables, the bands and the (C, columns) output; not the
+    run table, which only the kernel's design needs."""
+    return nbytes(slot, xs, ys, pix, tables, bands, out) + 4 * ang_pixels
+
+
 def bound(ops: float, moved: float) -> tuple[float, str]:
     """Least time on the card in ms, and what bounds it."""
     t_ops, t_bytes = ops / PEAK_F32, moved / PEAK_BYTES
@@ -759,7 +796,8 @@ def ptxas_report(build_log: str) -> list[str]:
             src = line[2:].strip()
         elif "Compiling entry function" in line:
             name = demangled[line.split("'")[1]]
-            name = name.replace("(int)", "").split("(")[0]
+            name = (name.replace("(int)", "").replace("(bool)", "")
+                    .split("(")[0])
             name = name.split("::")[-1]
         elif "spill stores" in line:
             spill = line
@@ -1150,31 +1188,43 @@ def check_lsd_kernels(angle, active, idx, mag_c, ang_c, tile, dev,
         consume_bytes(slot, xs, ys, ang, t9, surv[0].numel()),
         card=lambda: lsd_fit.consume_survivors_into(*args_c, *outs_c)))
 
-    # the rescue's 15 bands and rect_improve's 4 on the first fit's
-    # rectangles, as _rescue builds the tables: K10, integer counts, exact
+    # the rescue cascade's counts (the p/2 retry and the 15 bands in one
+    # pass) and rect_improve's 4 bands on the first fit's rectangles, as
+    # _rescue and _rect_improve build the tables: K10, integer counts,
+    # exact, the same bits in a second call
     t10 = lsd._band_tables(f)
-    for bands in (lsd.RESCUE_BANDS, lsd_fit.SYM_BANDS):
+    n_ang = half_band_pixels(slot, xs, ys, pix, t10, C)
+    for name, bands in (("K10 rescue_counts", lsd.RESCUE_BANDS),
+                        ("K10 band_counts", lsd_fit.SYM_BANDS)):
         bt = torch.tensor(bands, dtype=torch.float32, device=dev)
-        args10 = (slot, xs, ys, pix, t10, C, bt)
-        cnt = lsd_fit.band_counts_cuda(*args10)
-        cnt_p = lsd_fit.band_counts_plain(*args10)
+        if name.endswith("rescue_counts"):
+            args10 = (slot, xs, ys, ang, pix, t10, C, bt, lsd.COS_GATE_HALF)
+            k10 = lambda args=args10: lsd_fit.rescue_counts_cuda(*args,
+                                                                 starts)
+            plain = lambda args=args10: lsd_fit.rescue_counts_plain(*args)
+            ops = K9_OPS_PER_PIXEL * n_ang
+        else:
+            args10 = (slot, xs, ys, pix, t10, C, bt)
+            k10 = lambda args=args10: lsd_fit.band_counts_cuda(*args, starts)
+            plain = lambda args=args10: lsd_fit.band_counts_plain(*args)
+            ops = 0
+        cnt, again, cnt_p = k10(), k10(), plain()
         torch.cuda.synchronize()
-        exact = torch.equal(cnt, cnt_p)
-        k10 = lambda args=args10: lsd_fit.band_counts_cuda(*args)
-        plain10 = cuda_ms(lambda: lsd_fit.band_counts_plain(*args10), 5)
-        print(f"[{what}] K10 band_counts, {len(bands)} bands: "
-              f"{int(cnt.sum())} pixel-band hits, equal to the plain "
-              f"version {exact}; {cuda_ms(k10, 20):.4f} ms, on the card "
+        exact, repeat = torch.equal(cnt, cnt_p), torch.equal(cnt, again)
+        plain10 = cuda_ms(plain, 5)
+        print(f"[{what}] {name}, {cnt.shape[1]} columns: {int(cnt.sum())} "
+              f"pixel-column hits, {n_ang} pixels inside the p/2 band; "
+              f"equal to the plain version {exact}, two calls identical "
+              f"{repeat}; {cuda_ms(k10, 20):.4f} ms, on the card "
               f"{device_ms(k10):.4f} ms, plain {plain10:.3f} ms", flush=True)
-        check(exact, f"K10 ({len(bands)} bands) differs from its plain "
-              f"version")
-        if len(bands) == len(lsd.RESCUE_BANDS):
-            rows.append(kernel_row(
-                "K10 band_counts", "lsd_fit.cu",
-                "line3dpp_tpu/ops/lsd_fit.py:498",
-                float((cnt - cnt_p).abs().max()), k10, plain10,
-                (K10_OPS_PER_PIXEL + K10_OPS_PER_BAND * len(bands)) * n_real,
-                nbytes(slot, xs, ys, pix, t10, bt, cnt)))
+        check(exact, f"{name} differs from its plain version")
+        check(repeat, f"{name} gives other counts in another call")
+        ops += (K10_OPS_PER_PIXEL + K10_OPS_PER_BAND * len(bands)) * n_real
+        rows.append(kernel_row(
+            name, "lsd_fit.cu", "line3dpp_tpu/ops/lsd_fit.py:498",
+            float((cnt - cnt_p).abs().max()), k10, plain10, ops,
+            count_bytes(slot, xs, ys, pix, t10, bt, cnt,
+                        n_ang if name.endswith("rescue_counts") else 0)))
     return rows
 
 
@@ -1332,6 +1382,34 @@ def rescue_differences(view, ref_rescued, ref_segs, segs, ok, diag) -> list:
         if d_ref[k] > RESCUE_TOL_PX and nfa[c] >= RESCUE_NFA_MARGIN:
             unexplained.append(what)
     return unexplained
+
+
+def detect_rect_improve(img, dev) -> dict:
+    """One detection of ``img`` with the ``rect_improve`` knob, the one
+    path of K10's 4-band form, with every launch counter reset just before
+    and read just after: requires the 4-band form once a round and no
+    rescue form, and finite segments."""
+    import torch
+    from line3dpp_tpu_torch.ops import kernels, lsd
+
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    stats = []
+    segs = lsd.detect_batch([img], rect_improve=True, device=dev,
+                            stats=stats)[0]
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    rounds = len(stats[0]["rounds"])
+    print(f"detection of facade view 0 with rect_improve: {len(segs)} "
+          f"segments, {rounds} rounds; launches: {json.dumps(launches)}",
+          flush=True)
+    check(launches["band_counts"] == rounds == launches["cc_tiles"],
+          "rect_improve did not run K10's 4-band form once a round")
+    check(launches["rescue_counts"] == 0,
+          "rect_improve alone launched K10's rescue form")
+    check(len(segs) > 0 and bool(np.isfinite(segs).all()),
+          "rect_improve gave no segments or non-finite ones")
+    return launches
 
 
 def images_to_lines(images, cams, gt, ref, dev, rescue: bool = False):
@@ -1607,6 +1685,59 @@ def bundled_cached(views, dev, opts):
     return phases
 
 
+def check_bin_round_trip(pipe, base: str) -> float:
+    """``Line3D.save_bin`` in both formats, then ``load_bin``: the lines
+    back (the boost format keeps each residual's (camID, segID) only).
+    Returns the seconds of the two writes."""
+    import line3dpp_tpu_torch as lt
+
+    t0 = time.perf_counter()
+    pipe.save_bin(base + ".bin")
+    pipe.save_bin(base + "_npz.bin", fmt="npz")
+    save_s = time.perf_counter() - t0
+    for path, cols in ((base + ".bin", 2), (base + "_npz.bin", 6)):
+        back = lt.load_bin(path)
+        same = len(back) == len(pipe.lines3d) and all(
+            np.array_equal(a.segments3d, b.segments3d)
+            and np.array_equal(a.residuals[:, :cols], b.residuals[:, :cols])
+            for a, b in zip(back, pipe.lines3d))
+        print(f"save_bin / load_bin {os.path.basename(path)}: "
+              f"{os.path.getsize(path)} bytes, {len(back)} lines back, "
+              f"equal to lines3d: {same}", flush=True)
+        check(same, f"{path}: load_bin did not give back lines3d")
+    return save_s
+
+
+# Brown coefficients (k1, k2, k3, p1, p2) of the undistortion check
+UNDISTORT_COEFFS = (-0.12, 0.03, 0.0, 0.0015, -0.0008)
+
+
+def check_undistort(image, K, dev) -> dict:
+    """``undistort_image`` of a full-size image on the card against the
+    port's CPU result on the same float32 image (the same float32
+    operations: atol 0.02 on the 0-255 range), timed by CUDA events with
+    the copies to and from the card."""
+    import line3dpp_tpu_torch as lt
+
+    img = np.asarray(image, np.float32)
+    dist = np.array(UNDISTORT_COEFFS)
+    got = lt.undistort_image(img, K, dist, device=dev)
+    want = lt.undistort_image(img, K, dist, device="cpu")
+    err = float(np.abs(got - want).max())
+    t0 = time.perf_counter()
+    lt.undistort_image(img, K, dist, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    row = dict(shape=list(img.shape), max_abs_err=err,
+               outside=int((got == 0).sum()),
+               ms=cuda_ms(lambda: lt.undistort_image(img, K, dist,
+                                                     device=dev), 5),
+               cpu_ms=1e3 * cpu_s)
+    print(f"undistort_image on the card: {json.dumps(row)}", flush=True)
+    check(got.shape == img.shape and np.isfinite(got).all() and err <= 0.02,
+          "undistort_image on the card differs from the CPU's")
+    return row
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", help="directory for the build log and profile")
@@ -1724,6 +1855,7 @@ def main() -> None:
             n_rows = sum(1 for _ in f)
         with open(base + ".stl") as f:
             n_facets = sum(1 for r in f if r.startswith(" endfacet"))
+        phases["save_bin_s"] = check_bin_round_trip(pipe, base)
     cached_launches = dict(kernels.LAUNCHES)
     phases["peak_device_GiB"] = torch.cuda.max_memory_allocated() / 2**30
     print("cached segments -> lines: " + json.dumps(phases), flush=True)
@@ -1769,6 +1901,7 @@ def main() -> None:
     from line3dpp_tpu_torch.ops import lsd
     from line3dpp_tpu_torch.utils import synthetic
 
+    undistorted = check_undistort(images[0], cams[0].K, dev)
     img, _ = lsd._prepare(images[0], -1, dev)
     _, _, th, tw, _, _ = lsd._statics(*img.shape)
     rows += check_lsd_kernels(*lsd._grad_compact(img), (th, tw), dev,
@@ -1806,6 +1939,7 @@ def main() -> None:
                                        dev, rescue=True)
     print("images -> lines with the rescue cascade, phases: "
           + json.dumps(phases), flush=True)
+    rect_launches = detect_rect_improve(images[0], dev)
     if opts.profile:
         profile(lambda: lsd.detect_batch(images[:1], device=dev),
                 "detect_view0", opts.out)
@@ -1820,8 +1954,11 @@ def main() -> None:
     for r in rows:
         # launches: the rescue path, which runs every kernel; also those of
         # the default Config()'s detection (no K10)
-        r["launches"] = launches[r["name"].split()[1]]
-        r["launches_default"] = default_launches[r["name"].split()[1]]
+        key = r["name"].split()[1]
+        r["launches"] = launches[key]
+        r["launches_default"] = default_launches[key]
+        r["launches_rect_improve"] = rect_launches[key]
+    print(json.dumps({"undistort": undistorted}), flush=True)
     print(json.dumps({"facade_rounds": facade_rounds}), flush=True)
     print(json.dumps({"full_size": full}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -8,7 +8,9 @@ package's Pallas kernels.  It imports neither JAX nor ``line3dpp_tpu``.
 
 It runs the default reconstruction from images (``Line3D.add_image``,
 ``add_images``, or ``detect`` alone) or from precomputed 2D segments
-(``Line3D.add_view``); the options not ported yet raise
+(``Line3D.add_view``), reads and writes the reference's ``.bin`` formats
+(``Line3D.save_bin``, ``load_bin``, ``load_reference_bin``) and undistorts
+images (``undistort_image``); the options not ported yet raise
 ``NotImplementedError``.
 """
 
@@ -16,6 +18,9 @@ from .camera import Camera
 from .config import Config
 from .models.pipeline import Line3D
 from .ops.lsd import detect
-from .utils.writers import FinalLine3D
+from .ops.undistort import undistort_image
+from .utils.ref_bin import load_reference_bin
+from .utils.writers import FinalLine3D, load_bin
 
-__all__ = ["Config", "Camera", "Line3D", "FinalLine3D", "detect"]
+__all__ = ["Config", "Camera", "Line3D", "FinalLine3D", "detect",
+           "load_bin", "load_reference_bin", "undistort_image"]

@@ -1,13 +1,14 @@
 // K7 moments, K8 gate_moments, K9 gate_pixels (and its consume form,
-// consume_survivors), K10 band_counts and K11 extents: the LSD
-// rectangle-fit passes over the label-sorted pixel list.
+// consume_survivors), K10 band_counts (and its rescue form,
+// rescue_counts) and K11 extents: the LSD rectangle-fit passes over the
+// label-sorted pixel list.
 //
 // Replace line3dpp_tpu/ops/lsd_fit.py:_moments_kernel (moments),
 // _gate_moments_kernel (gate_moments), _gate_kernel (gate_pixels),
-// _band_counts_kernel (band_counts) and _extent_kernel (extents).  Every pixel i carries a component slot in
-// [0, C]; the slots of real components increase along the list and each
-// component is one contiguous run, and slot C (the dump) marks every other
-// pixel.  Tables are (C, 8) float32 rows (ct, st, cx, cy, gate, center, 0,
+// _band_counts_kernel (band_counts) and _extent_kernel (extents).  Every
+// pixel i carries a component slot in [0, C]; the slots of real components
+// increase along the list and each component is one contiguous run, and
+// slot C (the dump) marks every other pixel.  Tables are (C, 8) float32 rows (ct, st, cx, cy, gate, center, 0,
 // 0), read as two float4.  The Pallas kernels reach their components
 // through one-hot matrix products over a 384-slot window of the table and
 // a run-head scatter trick for the minima; both are TPU workarounds, and
@@ -18,10 +19,8 @@
 // 4 B per pixel (2.8 M pixels at 3072 x 2304 on real photos) and writes one
 // plane or a small table; the tables are L2-resident.  K9 is one thread
 // per pixel, and its consume form compacts the survivors in the same pass
-// (gate_kernel); K10 one thread per pixel whose warp counts the runs it
-// holds with ballots and adds them with one integer atomic per run and
-// warp; K7, K8 and K11 read whole component runs through the run table
-// (below), with no atomics and no init or output pass.
+// (gate_kernel); K7, K8, K10 and K11 read whole component runs through the
+// run table (below), with no atomics and no init or output pass.
 //   - Sums (K7, K8): the float32 terms w, wx, wy, wx*x, wy*y, wx*y, pix of
 //     the JAX package are accumulated in float64 and rounded to float32 at
 //     the end.  The sums of w x^2 reach ~1e13 at x ~ 2560 and the fit
@@ -38,17 +37,12 @@
 //     on a row it reads once (gate_row), with sincosf, whose bits equal
 //     sinf's and cosf's for every float32 argument (chip_smoke.py checks
 //     all 2^32 on the card), so K8's newpix equals K9's.
-//   - Band counts (K10): the table row holds (ct, st, cx, cy, mid, width);
-//     every pixel evaluates s = 2 (w_proj - mid) and, for each of up to 16
-//     bands (lo_w, lo_c, hi_w, hi_c), lo_w width + lo_c <= s <= hi_w width +
-//     hi_c, again without contraction, so a pixel on a band's edge falls on
-//     the same side as in the plain version.  Per band one __ballot_sync of
-//     the predicate; the first lane of each group of equal slots
-//     (__match_any_sync) adds the popcount of its group's bits to an int32
-//     (C, B) scratch with one integer atomicAdd.  Integer sums do not depend
-//     on their order: the result is deterministic and equals the plain
-//     version exactly.  The Pallas kernel's limit of 8 bands (its sublane
-//     count) does not exist here, so the rescue's 15 bands are one launch.
+//   - Band counts (K10): integer counts over the component runs, in one
+//     pass of their own (counts_kernel); the band thresholds, s = 2 (w_proj
+//     - mid) and the rescue's p/2 gate are the plain version's expressions
+//     without contraction, so a pixel on a band's edge falls on the same
+//     side, and integer sums do not depend on their order: the counts
+//     equal the plain version's exactly.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -58,11 +52,6 @@ namespace {
 constexpr unsigned kFull = 0xffffffffu;
 constexpr float kBig = 1e9f;
 constexpr int kThreads = 256;
-
-int blocks_for(int64_t n) {
-  const int64_t want = (n + kThreads - 1) / kThreads;
-  return (int)(want < 132 * 16 ? want : 132 * 16);
-}
 
 // keep(pixel) of lsd_fit.gate_pixels_plain
 __device__ __forceinline__ float gate_one(const float4* __restrict__ tab,
@@ -107,12 +96,6 @@ __device__ __forceinline__ int encode(float f) {
 __device__ __forceinline__ float decode(int i) {
   return __int_as_float(i >= 0 ? i : i ^ 0x7fffffff);
 }
-
-// All loops below walk the pixels a warp at a time (the base index is the
-// same for the whole warp), so every lane takes part in the shuffles.
-#define FOR_WARP_CHUNKS(n)                                               \
-  for (int64_t base = (int64_t)blockIdx.x * blockDim.x + (threadIdx.x & ~31); \
-       base < (n); base += (int64_t)gridDim.x * blockDim.x)
 
 // K9 in two forms, one routine (gate_kernel<COMPACT, THREADS, ITEMS>).  A
 // block works on tiles of THREADS * ITEMS pixels, each warp on 32 * ITEMS
@@ -330,59 +313,6 @@ __global__ void __launch_bounds__(THREADS) gate_kernel(const GateArgs a) {
       }
     }
   }
-}
-
-constexpr int kMaxBands = 16;
-
-__global__ void band_counts_kernel(const int* __restrict__ slot,
-                                   const float* __restrict__ xs,
-                                   const float* __restrict__ ys,
-                                   const float* __restrict__ pix,
-                                   const float4* __restrict__ tab,
-                                   const float4* __restrict__ bands, int64_t n,
-                                   int C, int B, int* __restrict__ acc) {
-  __shared__ float4 sb[kMaxBands];
-  if (threadIdx.x < B) sb[threadIdx.x] = bands[threadIdx.x];
-  __syncthreads();
-  const int lane = threadIdx.x & 31;
-  FOR_WARP_CHUNKS(n) {
-    const int64_t i = base + lane;
-    int key = -1;
-    bool in = false;
-    float s2 = 0.f, width = 0.f;
-    if (i < n) {
-      const int s = slot[i];
-      if (s >= 0 && s < C) {
-        key = s;
-        const float4 a = tab[2 * (int64_t)s];        // ct st cx cy
-        const float4 b = tab[2 * (int64_t)s + 1];    // mid width - -
-        const float dxp = __fsub_rn(xs[i], a.z);
-        const float dyp = __fsub_rn(ys[i], a.w);
-        const float w =
-            __fadd_rn(__fmul_rn(-dxp, a.y), __fmul_rn(dyp, a.x));
-        s2 = __fmul_rn(2.f, __fsub_rn(w, b.x));
-        width = b.y;
-        in = pix[i] != 0.f;
-      }
-    }
-    const unsigned peers = __match_any_sync(kFull, key);
-    const bool leader = key >= 0 && lane == __ffs(peers) - 1;
-    for (int b = 0; b < B; ++b) {
-      const float4 t = sb[b];                        // lo_w lo_c hi_w hi_c
-      const bool hit = in &&
-                       s2 >= __fadd_rn(__fmul_rn(t.x, width), t.y) &&
-                       s2 <= __fadd_rn(__fmul_rn(t.z, width), t.w);
-      const int cnt = __popc(__ballot_sync(kFull, hit) & peers);
-      if (leader && cnt) atomicAdd(acc + (int64_t)key * B + b, cnt);
-    }
-  }
-}
-
-__global__ void band_counts_out(const int* __restrict__ acc, int64_t total,
-                                float* __restrict__ out) {
-  for (int64_t j = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; j < total;
-       j += (int64_t)gridDim.x * blockDim.x)
-    out[j] = (float)acc[j];
 }
 
 // K11: one launch over the component runs, no atomics, no init or decode
@@ -717,6 +647,358 @@ __global__ void __launch_bounds__(THREADS, MINB) extents_kernel(
     }
     __syncthreads();
   }
+}
+
+// K10: band_counts and its rescue form rescue_counts, one routine
+// (counts_kernel<HALF, NB, THREADS, I, MINB>) and one launch over the list,
+// with no memset, no output pass and no atomics.  Each warp counts its own
+// span of 32 * I pixels (I consecutive a lane, every plane read with
+// 16-byte loads where the planes are aligned) and nothing past it.  A
+// lane counts its pixels run by run; a run's thresholds are computed where
+// the lane's pixels enter it, not per pixel.  With HALF, column 0 is the
+// rescue's p/2 retry: K9's gate_one with center = mid, the band
+// |w_proj - mid| <= (width > 0 ? width / 2 : -1) and the alignment
+// |cos(ang) ct + sin(ang) st| >= cos_tol (sincosf, whose bits are cosf's
+// and sinf's); the bands follow in columns 1..  Without it the bands are
+// columns 0..  A band holds the pixels with lo_w width + lo_c <= s <=
+// hi_w width + hi_c, s = 2 (w_proj - mid); the bands past B never hit.  A
+// segmented shuffle scan over the lanes joins the runs that cross lanes,
+// their counts packed two to a word (a span holds at most 256 pixels of a
+// run), and the lane where a run ends writes its row.  A run that crosses
+// spans: each warp whose span it leaves posts its piece, one word per two
+// columns tagged with the call's epoch (epoch << 32 | two 16-bit counts),
+// so an earlier call's words read as not posted and no memset is needed;
+// the warp where the run ends sums the pieces of the warps back to the
+// run's head (starts[c] / span), 32 a step, each once it is posted.  A warp
+// posts before it waits and waits only on warps of earlier spans: of its
+// own block, or of blocks launched before it, which run or have run (as
+// K9's consume form relies on), so the facade's runs of thousands of pixels
+// are counted by as many warps, not read by one block.  Integer counts: any
+// split of the work gives the plain version's counts exactly.  What bounds
+// it: memory, 16 B a pixel (slot, x, y, pix; the kernel reads the angle of
+// every pixel with them, the function needs it only inside the p/2 band),
+// the tables and the (C, cols) output.  Measured on an H100 80GB HBM3 at
+// 700 W (tests/measure_torch_k10.py), it is latency-bound instead: 7.3 us
+// on the facade's round 1, 66 us at 57% active against a bound of 18 us,
+// where one band alone takes 30 us (the loads, the table rows, the scan and
+// the look-back), the other 14 bands 20 us more at 104-128 registers, and
+// the p/2 column 16 us.  tests/test_torch_kernel_design.py mirrors the
+// split in torch.
+
+constexpr int kMaxBands = 16;
+
+struct CountArgs {
+  const int* slot;
+  const float *xs, *ys, *ang, *pix;  // ang: with the p/2 column only
+  const float4* tab;                 // rows (ct st cx cy), (mid width - -)
+  const float4* bands;               // (B, 4): lo_w lo_c hi_w hi_c
+  const int* starts;
+  float* out;                        // (C, cols)
+  unsigned long long* words;         // NB / 2 per span, epoch-tagged
+  int64_t n;
+  int C, B, cols, vec;
+  unsigned epoch;
+  float cos_tol;
+};
+
+// one component's tests: its row and its NBANDS band thresholds
+template <int NBANDS>
+struct BandTest {
+  float4 a;       // ct st cx cy
+  float mid, g;   // g: the p/2 band's half-width, -1 where width <= 0
+  float lo[NBANDS], hi[NBANDS];
+};
+
+template <int NBANDS>
+__device__ __forceinline__ void band_test(const CountArgs& a,
+                                          const float4* sb, int k,
+                                          BandTest<NBANDS>& t) {
+  t.a = a.tab[2 * (int64_t)k];
+  const float4 b = a.tab[2 * (int64_t)k + 1];  // mid width - -
+  t.mid = b.x;
+  t.g = b.y > 0.f ? __fmul_rn(0.5f, b.y) : -1.f;
+#pragma unroll
+  for (int j = 0; j < NBANDS; ++j) {
+    const float4 s = sb[j];
+    t.lo[j] = __fadd_rn(__fmul_rn(s.x, b.y), s.y);
+    t.hi[j] = __fadd_rn(__fmul_rn(s.z, b.y), s.w);
+  }
+}
+
+// column col's unit in counts of at most 65535 packed two to a word:
+// column w in the low half of word w, column w + H in the high half
+template <int H>
+__device__ __forceinline__ void add_column(unsigned (&m)[H], int col,
+                                           bool hit) {
+  if (hit) m[col % H] += col < H ? 1u : 0x10000u;
+}
+
+// m += the columns of a pixel of component t (pix p at x, y, angle an)
+template <bool HALF, int H, int NBANDS>
+__device__ __forceinline__ void count_pixel(const BandTest<NBANDS>& t,
+                                            float x, float y, float p,
+                                            float an, float cos_tol,
+                                            unsigned (&m)[H]) {
+  if (p == 0.f) return;
+  const float dxp = __fsub_rn(x, t.a.z);
+  const float dyp = __fsub_rn(y, t.a.w);
+  const float d = __fsub_rn(
+      __fadd_rn(__fmul_rn(-dxp, t.a.y), __fmul_rn(dyp, t.a.x)), t.mid);
+  const float s = __fmul_rn(2.f, d);
+#pragma unroll
+  for (int j = 0; j < NBANDS; ++j)
+    add_column(m, j + (HALF ? 1 : 0), s >= t.lo[j] && s <= t.hi[j]);
+  if (HALF && fabsf(d) <= t.g) {
+    float sn, cs;
+    sincosf(an, &sn, &cs);
+    add_column(m, 0,
+               fabsf(__fadd_rn(__fmul_rn(cs, t.a.x), __fmul_rn(sn, t.a.y))) >=
+                   cos_tol);
+  }
+}
+
+// row k of the output: the packed counts m, plus the integer counts extra
+// where add
+template <int NB>
+__device__ __forceinline__ void store_counts(const CountArgs& a, int k,
+                                             const unsigned (&m)[NB / 2],
+                                             const int (&extra)[NB],
+                                             bool add) {
+  constexpr int H = NB / 2;
+  float v[NB];
+#pragma unroll
+  for (int c = 0; c < NB; ++c)
+    v[c] = (float)((int)((m[c % H] >> (16 * (c / H))) & 0xffffu) +
+                   (add ? extra[c] : 0));
+  float* o = a.out + (int64_t)k * a.cols;
+  if (a.vec && a.cols == NB) {
+#pragma unroll
+    for (int q = 0; q < NB; q += 4)
+      reinterpret_cast<float4*>(o)[q / 4] =
+          make_float4(v[q], v[q + 1], v[q + 2], v[q + 3]);
+  } else {
+#pragma unroll
+    for (int c = 0; c < NB; ++c)
+      if (c < a.cols) o[c] = v[c];
+  }
+}
+
+// the trailing run of a stretch of lanes: its component, whether it fills
+// the stretch, its packed counts
+template <int H>
+struct RunCnt {
+  int k, whole;
+  unsigned m[H];
+};
+
+// b = a (earlier lanes) followed by b
+template <int H>
+__device__ __forceinline__ void run_join(const RunCnt<H>& a, RunCnt<H>& b) {
+  const bool same = b.whole && a.k == b.k;
+  if (same) {
+#pragma unroll
+    for (int w = 0; w < H; ++w) b.m[w] += a.m[w];
+  }
+  b.whole = same && a.whole;
+}
+
+template <int H>
+__device__ __forceinline__ RunCnt<H> run_shfl(const RunCnt<H>& r, int src) {
+  RunCnt<H> o;
+  o.k = __shfl_sync(kFull, r.k, src);
+  o.whole = __shfl_sync(kFull, r.whole, src);
+#pragma unroll
+  for (int w = 0; w < H; ++w) o.m[w] = __shfl_sync(kFull, r.m[w], src);
+  return o;
+}
+
+template <int H>
+__device__ __forceinline__ RunCnt<H> run_shfl_up(const RunCnt<H>& r, int d) {
+  RunCnt<H> o;
+  o.k = __shfl_up_sync(kFull, r.k, d);
+  o.whole = __shfl_up_sync(kFull, r.whole, d);
+#pragma unroll
+  for (int w = 0; w < H; ++w) o.m[w] = __shfl_up_sync(kFull, r.m[w], d);
+  return o;
+}
+
+// tot = the sum of the pieces posted by the warps of spans [from, to), by
+// the whole warp, 32 spans a step: each lane loads its span's words
+// together, then reads again only those that do not carry the call's epoch
+// yet (their warp still runs)
+template <int NB>
+__device__ __forceinline__ void sum_pieces(const CountArgs& a, int64_t from,
+                                           int64_t to, int lane,
+                                           int (&tot)[NB]) {
+  constexpr int H = NB / 2;
+  const unsigned long long none = (unsigned long long)a.epoch << 32;
+#pragma unroll
+  for (int c = 0; c < NB; ++c) tot[c] = 0;
+  for (int64_t base = from; base < to; base += 32) {
+    const int64_t j = base + lane;
+    unsigned long long v[H];
+#pragma unroll
+    for (int w = 0; w < H; ++w)
+      v[w] = j < to ? read_status(a.words + j * H + w) : none;
+    unsigned m[H];
+#pragma unroll
+    for (int w = 0; w < H; ++w) {
+      // the cap only bounds the wait where a run table that misplaces a
+      // run would leave a word unposted
+      for (int spin = 0;
+           (unsigned)(v[w] >> 32) != a.epoch && spin < (1 << 26); ++spin)
+        v[w] = read_status(a.words + j * H + w);
+      m[w] = (unsigned)v[w];
+    }
+    // at most 32 pieces of 256 a half: the halves do not carry
+#pragma unroll
+    for (int w = 0; w < H; ++w) {
+      m[w] = __reduce_add_sync(kFull, m[w]);
+      tot[w] += (int)(m[w] & 0xffffu);
+      tot[w + H] += (int)(m[w] >> 16);
+    }
+  }
+}
+
+// NB columns (a multiple of 4), THREADS per block, I pixels per lane, at
+// least MINB blocks an SM
+template <bool HALF, int NB, int THREADS, int I, int MINB>
+__global__ void __launch_bounds__(THREADS, MINB)
+    counts_kernel(const CountArgs a) {
+  constexpr int kWarps = THREADS / 32, kSpan = 32 * I, H = NB / 2;
+  constexpr int NBANDS = HALF ? NB - 1 : NB;
+  static_assert(NB % 4 == 0 && NB <= kMaxBands && I % 4 == 0, "layout");
+  __shared__ float4 sb[kMaxBands];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, C = a.C;
+  const int64_t n = a.n;
+  const int64_t spans = (n + kSpan - 1) / kSpan;
+  const int64_t pixel_blocks = (spans + kWarps - 1) / kWarps;
+
+  if (blockIdx.x >= pixel_blocks) {
+    // components with no pixel
+    const int64_t c = (blockIdx.x - pixel_blocks) * THREADS + tid;
+    if (c < C && a.starts[c] >= (c + 1 < C ? (int64_t)a.starts[c + 1] : n)) {
+      const unsigned m[H] = {};
+      const int none[NB] = {};
+      store_counts<NB>(a, (int)c, m, none, false);
+    }
+    return;
+  }
+  if (tid < kMaxBands) {
+    const float inf = __int_as_float(0x7f800000);
+    sb[tid] = tid < a.B ? a.bands[tid] : make_float4(0.f, inf, 0.f, -inf);
+  }
+  __syncthreads();
+  const int64_t g = (int64_t)blockIdx.x * kWarps + warp;  // the span
+  if (g >= spans) return;
+
+  const int64_t w0 = g * kSpan, hi = w0 + kSpan < n ? w0 + kSpan : n;
+  const int64_t i0 = w0 + (int64_t)lane * I;
+  const bool vec = a.vec != 0;
+  int key[I];
+  float x[I], y[I], p[I], an[I];
+  load_items<I>(a.slot, i0, hi, vec, key);
+  load_items<I>(a.xs, i0, hi, vec, x);
+  load_items<I>(a.ys, i0, hi, vec, y);
+  load_items<I>(a.pix, i0, hi, vec, p);
+  if (HALF) load_items<I>(a.ang, i0, hi, vec, an);
+  // the pixels before and after the span
+  const int before = __shfl_sync(kFull,
+                                 lane == 0 && w0 > 0 ? a.slot[w0 - 1] : -1, 0);
+  const int after = __shfl_sync(kFull, lane == 31 && hi < n ? a.slot[hi] : -1,
+                                31);
+#pragma unroll
+  for (int j = 0; j < I; ++j) {
+    const int k = key[j];
+    key[j] = (i0 + j < hi && k >= 0 && k < C) ? k : -1;
+  }
+
+  // the lane's pixels run by run: mf the first run's counts, mc the last's
+  // (at most I a column)
+  BandTest<NBANDS> t;
+  int kt = -1;
+  const int kf = key[0];
+  int kc = key[0];
+  unsigned mf[H], mc[H];
+#pragma unroll
+  for (int w = 0; w < H; ++w) mc[w] = 0u;
+  const int none[NB] = {};
+  bool first = true;
+#pragma unroll
+  for (int j = 0; j < I; ++j) {
+    if (j > 0 && key[j] != kc) {
+      if (first) {
+#pragma unroll
+        for (int w = 0; w < H; ++w) mf[w] = mc[w];
+        first = false;
+      } else if (kc >= 0) {
+        store_counts<NB>(a, kc, mc, none, false);  // began and ended here
+      }
+      kc = key[j];
+#pragma unroll
+      for (int w = 0; w < H; ++w) mc[w] = 0u;
+    }
+    if (key[j] >= 0) {
+      if (key[j] != kt) {
+        band_test(a, sb, key[j], t);
+        kt = key[j];
+      }
+      count_pixel<HALF>(t, x[j], y[j], p[j], HALF ? an[j] : 0.f, a.cos_tol,
+                        mc);
+    }
+  }
+  if (first) {
+#pragma unroll
+    for (int w = 0; w < H; ++w) mf[w] = mc[w];
+  }
+
+  // segmented scan of the lanes' last runs
+  RunCnt<H> inc;
+  inc.k = kc;
+  inc.whole = first;
+#pragma unroll
+  for (int w = 0; w < H; ++w) inc.m[w] = mc[w];
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const RunCnt<H> o = run_shfl_up(inc, d);
+    if (lane >= d) run_join(o, inc);
+  }
+  RunCnt<H> ex = run_shfl_up(inc, 1);
+  if (lane == 0) ex.k = -1;
+  const int down = __shfl_down_sync(kFull, key[0], 1);
+  const int next = lane < 31 ? down : after;
+  // a run leaving the span: its piece, for the warp where it ends
+  if (lane == 31 && kc >= 0 && next == kc) {
+#pragma unroll
+    for (int w = 0; w < H; ++w)
+      post_status(a.words + g * H + w,
+                  (unsigned long long)a.epoch << 32 | inc.m[w]);
+  }
+  // the run at the span's head, begun in an earlier span: unless it fills
+  // the span and goes on, it ends here, and its pieces are summed
+  const int head = __shfl_sync(kFull, key[0], 0);
+  const RunCnt<H> last = run_shfl(inc, 31);
+  const bool begun = head >= 0 && before == head;
+  int lb[NB];
+  if (begun && !(last.k == head && last.whole && after == head)) {
+    sum_pieces<NB>(a, (int64_t)a.starts[head] / kSpan, g, lane, lb);
+  } else {
+#pragma unroll
+    for (int c = 0; c < NB; ++c) lb[c] = 0;
+  }
+  if (!first && kf >= 0) {
+    if (ex.k == kf) {
+#pragma unroll
+      for (int w = 0; w < H; ++w) mf[w] += ex.m[w];
+    }
+    store_counts<NB>(a, kf, mf, lb, begun && kf == head);  // ended here
+  }
+  if (first && ex.k == kc) {
+#pragma unroll
+    for (int w = 0; w < H; ++w) mc[w] += ex.m[w];
+  }
+  if (kc >= 0 && next != kc)
+    store_counts<NB>(a, kc, mc, lb, begun && kc == head);
 }
 
 // K7 moments and K8 gate_moments: one launch over the component runs, one
@@ -1228,26 +1510,6 @@ extern "C" int l3d_consume_survivors(
   return (int)cudaErrorInvalidValue;
 }
 
-extern "C" int l3d_band_counts(const int* slot, const float* xs,
-                               const float* ys, const float* pix,
-                               const float* tables, const float* bands, int n,
-                               int C, int B, int* scratch, float* out,
-                               void* stream) {
-  if (n < 0 || C < 0 || B < 1 || B > kMaxBands)
-    return (int)cudaErrorInvalidValue;
-  if (C == 0) return 0;
-  cudaStream_t s = (cudaStream_t)stream;
-  const int64_t total = (int64_t)C * B;
-  cudaError_t err = cudaMemsetAsync(scratch, 0, sizeof(int) * (size_t)total, s);
-  if (err != cudaSuccess) return (int)err;
-  if (n > 0)
-    band_counts_kernel<<<blocks_for(n), kThreads, 0, s>>>(
-        slot, xs, ys, pix, reinterpret_cast<const float4*>(tables),
-        reinterpret_cast<const float4*>(bands), n, C, B, scratch);
-  band_counts_out<<<blocks_for(total), kThreads, 0, s>>>(scratch, total, out);
-  return (int)cudaGetLastError();
-}
-
 template <int THREADS, int I, int OVER, int MINB>
 int launch_extents(const int* slot, const float* xs, const float* ys,
                    const float* pix, const float* tables, const int* starts,
@@ -1283,4 +1545,74 @@ extern "C" int l3d_extents(const int* slot, const float* xs, const float* ys,
                                         C, vec, out, s);
   return launch_extents<128, 8, 2, 1>(slot, xs, ys, pix, tables, starts, n, C,
                                       vec, out, s);
+}
+
+namespace {
+
+template <bool HALF, int NB, int THREADS, int I, int MINB>
+int launch_counts(const CountArgs& a, cudaStream_t stream) {
+  constexpr int64_t span = 32 * I, warps = THREADS / 32;
+  const int64_t blocks = ((a.n + span - 1) / span + warps - 1) / warps;
+  const int64_t all = blocks + ((int64_t)a.C + THREADS - 1) / THREADS;
+  counts_kernel<HALF, NB, THREADS, I, MINB>
+      <<<(unsigned)all, THREADS, 0, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// the layout by the span a warp counts, which lsd_fit.count_span chooses
+// from the list's length and the card's SM count: 128 pixels, 4 a lane, 2
+// blocks an SM; 256, 8 a lane, 4 blocks an SM
+template <bool HALF, int NB>
+int launch_counts_for(const CountArgs& a, int span, cudaStream_t stream) {
+  if (span == 128) return launch_counts<HALF, NB, 128, 4, 2>(a, stream);
+  return launch_counts<HALF, NB, 128, 8, 4>(a, stream);
+}
+
+CountArgs count_args(const int* slot, const float* xs, const float* ys,
+                     const float* ang, const float* pix, const float* tables,
+                     const float* bands, const int* starts, int n, int C,
+                     int B, int half, float cos_tol,
+                     unsigned long long* words, unsigned epoch, float* out) {
+  CountArgs a{};
+  a.slot = slot, a.xs = xs, a.ys = ys, a.ang = ang, a.pix = pix;
+  a.tab = reinterpret_cast<const float4*>(tables);
+  a.bands = reinterpret_cast<const float4*>(bands);
+  a.starts = starts, a.out = out, a.words = words, a.epoch = epoch;
+  a.n = n, a.C = C, a.B = B, a.cols = B + (half ? 1 : 0), a.cos_tol = cos_tol;
+  a.vec = ((reinterpret_cast<uintptr_t>(slot) |
+            reinterpret_cast<uintptr_t>(xs) | reinterpret_cast<uintptr_t>(ys) |
+            reinterpret_cast<uintptr_t>(pix) |
+            reinterpret_cast<uintptr_t>(half ? ang : xs) |
+            reinterpret_cast<uintptr_t>(out)) & 15) == 0;
+  return a;
+}
+
+}  // namespace
+
+// K10: (C, B + half) float32 counts, with half the p/2 column first (ang,
+// cos_tol), over the component runs of the table starts; span: the pixels
+// a warp counts, 128 or 256 (lsd_fit.count_span); words: at least 8 per
+// span, epoch: not 0 and not used by an earlier call on these words (their
+// buffer starts zeroed)
+extern "C" int l3d_band_counts(const int* slot, const float* xs,
+                               const float* ys, const float* ang,
+                               const float* pix, const float* tables,
+                               const float* bands, const int* starts, int n,
+                               int C, int B, int half, int span,
+                               float cos_tol, unsigned long long* words,
+                               int64_t words_len, unsigned epoch, float* out,
+                               void* stream) {
+  const int cols = B + (half ? 1 : 0);
+  if (n < 0 || C < 0 || B < 1 || cols > kMaxBands || epoch == 0 ||
+      (span != 128 && span != 256) ||
+      ((int64_t)n + span - 1) / span * (kMaxBands / 2) > words_len)
+    return (int)cudaErrorInvalidValue;
+  if (C == 0) return 0;
+  const CountArgs a = count_args(slot, xs, ys, ang, pix, tables, bands,
+                                 starts, n, C, B, half, cos_tol, words, epoch,
+                                 out);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (half) return launch_counts_for<true, 16>(a, span, s);
+  if (cols <= 4) return launch_counts_for<false, 4>(a, span, s);
+  return launch_counts_for<false, 16>(a, span, s);
 }

@@ -36,7 +36,9 @@ from ..ops import geometry as geo
 from ..ops import lsd as lsd_ops
 from ..ops import sweep as sweep_ops
 from ..utils import segments_cache
-from ..utils.writers import FinalLine3D, save_obj, save_stl, save_txt
+from ..utils import ref_bin
+from ..utils.writers import FinalLine3D, save_bin, save_obj, save_stl, \
+    save_txt
 from .step import forward_step
 
 EPS = 1e-12
@@ -548,3 +550,16 @@ class Line3D:
 
     def save_obj(self, path: str) -> None:
         save_obj(path, self.lines3d)
+
+    def save_bin(self, path: str, fmt: str = "boost") -> None:
+        """Save the final model as ``.bin``: ``fmt="boost"`` (default) the
+        reference's boost binary archive of ``std::vector<FinalLine3D>``
+        (save3DLinesAsBIN line3D.cc:2690-2711), which Line3D++ tooling
+        reads; ``fmt="npz"`` the compressed numpy archive, which also
+        keeps the residuals' 2D endpoints (the boost format has none)."""
+        if fmt == "boost":
+            ref_bin.save_bin_boost(path, self.lines3d)
+        elif fmt == "npz":
+            save_bin(path, self.lines3d)
+        else:
+            raise ValueError(f"unknown bin format {fmt!r}")

@@ -13,7 +13,8 @@ and returns ``cudaGetLastError()``; :func:`launch` raises when that is not 0.
 ``ops/matching.py`` (K1), ``ops/scoring.py`` (K2), ``ops/affinity.py`` (K3),
 ``ops/lsd_cc.py`` (K4), ``ops/lsd_gather.py`` (K5, K6: ``gather_labels``
 and ``gather_merged``) and ``ops/lsd_fit.py`` (K7-K11; K9:
-``gate_pixels`` and ``consume_survivors``).
+``gate_pixels`` and ``consume_survivors``; K10: ``band_counts`` and
+``rescue_counts``).
 """
 
 from __future__ import annotations
@@ -39,7 +40,8 @@ LAUNCHES = {"match_pairs": 0, "score_matches": 0,
             "gather_target_estimates": 0, "cc_tiles": 0,
             "apply_merge_dense": 0, "gather_labels": 0, "gather_merged": 0,
             "moments": 0, "gate_moments": 0, "gate_pixels": 0,
-            "consume_survivors": 0, "band_counts": 0, "extents": 0}
+            "consume_survivors": 0, "band_counts": 0, "rescue_counts": 0,
+            "extents": 0}
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 _U = ctypes.c_uint
@@ -72,8 +74,10 @@ _SIGNATURES = {
     # epoch, idx mag ang count outputs, stream
     "l3d_consume_survivors": ([_P] * 7 + [_I] * 3 + [_F] + [_P, _L, _U]
                               + [_P] * 4 + [_P]),
-    # slot xs ys pix tables bands, n C B, scratch out, stream
-    "l3d_band_counts": [_P] * 6 + [_I] * 3 + [_P] * 2 + [_P],
+    # slot xs ys ang pix tables bands starts, n C B half span, cos_tol,
+    # words words_len epoch, out, stream
+    "l3d_band_counts": ([_P] * 8 + [_I] * 5 + [_F] + [_P, _L, _U] + [_P]
+                        + [_P]),
     # slot xs ys pix tables starts, n C, out, stream
     "l3d_extents": [_P] * 6 + [_I] * 2 + [_P] + [_P],
 }

@@ -19,9 +19,10 @@ has Pallas kernels:
    weighted moments and projection extents (``ops/lsd_fit``: kernels K7
    and K11), two density-refine iterations (kernel K8), the NFA test
    (lsd.cpp ``nfa``, with ``ops/special.betainc``), optionally the rescue
-   cascade of the rectangles that fail it (lsd.cpp ``rect_improve``: pixel
-   counts in 15 reduced bands, kernel K10, and a retry at half the angle
-   tolerance, kernel K9), and the consumption of accepted rectangles'
+   cascade of the rectangles that fail it (lsd.cpp ``rect_improve``: a
+   retry at half the angle tolerance and pixel counts in 15 reduced bands,
+   one pass of kernel K10's rescue form), and the consumption of accepted
+   rectangles'
    pixels (K9's consume form: gate and compact in one pass, one host read
    of the count) before the next round, which runs on the surviving
    pixels only.
@@ -447,14 +448,6 @@ def _first_argmax(t: torch.Tensor) -> torch.Tensor:
     return torch.where(top, pos, t.shape[1]).min(dim=1).values
 
 
-def _segment_count(pix: torch.Tensor, slot: torch.Tensor, C: int
-                   ) -> torch.Tensor:
-    """Pixels with ``pix != 0`` per component, as float32."""
-    acc = torch.zeros((C + 1,), dtype=torch.int32, device=pix.device)
-    acc.index_add_(0, slot.long(), (pix != 0.0).to(torch.int32))
-    return acc[:C].to(torch.float32)
-
-
 def _band_tables(f: dict) -> torch.Tensor:
     """The tables K10 reads: the rectangle's mid-line on its normal in
     column 4 and its width in column 5."""
@@ -471,23 +464,21 @@ def _rescue(pl: dict, f: dict, pix, ok, log_ntests: float) -> dict:
     axis) and half-width ``gate`` (0 and -1 for the others); also
     ``attempt`` and the best variant's log NFA ``nfa`` of every
     component."""
-    slot, xs, ys, C = pl["slot"], pl["xs"], pl["ys"], pl["C"]
     dev = pix.device
     mid = 0.5 * (f["wmin"] + f["wmax"])
     width = f["width"]
     length1 = f["length"].clamp_min(1.0)
-    counts = lsd_fit.band_counts(slot, xs, ys, pix, _band_tables(f), C,
-                                 _const(RESCUE_BANDS, dev))       # (C, 15)
+    # one pass: the p/2 retry (tighter alignment over the full band, same
+    # area) in column 0, then the 15 cuts
+    counts = lsd_fit.rescue_counts(
+        pl["slot"], pl["xs"], pl["ys"], pl["ang_s"], pix, _band_tables(f),
+        pl["C"], _const(RESCUE_BANDS, dev), COS_GATE_HALF,
+        pl["starts"])                                             # (C, 16)
+    k_half, counts = counts[:, 0], counts[:, 1:]
     steps = _const(RESCUE_STEPS, dev)
     w_v = width[:, None] - 0.5 * steps[None, :]
     nfa_v = _nfa(counts, length1[:, None] * w_v, log_ntests)
     nfa_v = torch.where((w_v > 0.5) & (counts >= 5.0), nfa_v, -BIG)
-    # the p/2 retry: tighter alignment over the full band, same area
-    pix_half = lsd_fit.gate_pixels(
-        slot, xs, ys, pl["ang_s"], pix,
-        _with_gate(f, torch.where(width > 0, 0.5 * width, -1.0), mid),
-        False, COS_GATE_HALF, C)
-    k_half = _segment_count(pix_half, slot, C)
     nfa_half = torch.where(
         k_half >= 5.0,
         _nfa(k_half, length1 * width, log_ntests, p=P_NFA / 2), -BIG)
@@ -511,7 +502,8 @@ def _rect_improve(pl: dict, f: dict, pix, log_ntests: float) -> torch.Tensor:
     unchanged) passes the size, density and NFA tests."""
     counts = lsd_fit.band_counts(pl["slot"], pl["xs"], pl["ys"], pix,
                                  _band_tables(f), pl["C"],
-                                 _const(lsd_fit.SYM_BANDS, pix.device))
+                                 _const(lsd_fit.SYM_BANDS, pix.device),
+                                 pl["starts"])
     cuts = _const((1.0, 2.0, 3.0, 4.0), pix.device)
     w_b = f["width"][:, None] - 0.5 * cuts[None, :]
     area_b = f["length"].clamp_min(1.0)[:, None] * w_b
@@ -695,6 +687,95 @@ def _lsd_core(img: torch.Tensor, n_rounds: int = 3, refine_iters: int = 2,
         diag.update({k: torch.cat([d[k] for d in filled])
                      for k in (filled[0] if filled else ())})
     return torch.cat(all_segs), torch.cat(all_ok), stats
+
+
+def merge_collinear(segs: np.ndarray, angle_tol_deg: float = 2.0,
+                    rho_tol: float = 2.5, gap_tol: float = 8.0) -> np.ndarray:
+    """Merge collinear, nearly-touching fragments into single segments (host
+    numpy, as ``line3dpp_tpu.ops.lsd.merge_collinear``; ``detect`` does not
+    call it).
+
+    The multi-round extraction fragments some long edges into pieces; left
+    unmerged they rank low in the top-K-by-length selection
+    (line3D.cc:320-360) and crowd out true structure.  Segments are hashed by
+    quantized line parameters (θ mod π, signed offset ρ) on two offset grids
+    each (to dodge quantization boundaries), then chains within a bucket are
+    joined greedily along the line when the projection gap is < ``gap_tol``.
+    """
+    if len(segs) == 0:
+        return segs
+    segs = np.asarray(segs, np.float64)
+    d = segs[:, 2:4] - segs[:, 0:2]
+    L = np.maximum(np.hypot(d[:, 0], d[:, 1]), 1e-12)
+    theta = np.arctan2(d[:, 1], d[:, 0]) % np.pi          # direction mod pi
+    nx, ny = -np.sin(theta), np.cos(theta)
+    rho = segs[:, 0] * nx + segs[:, 1] * ny               # line offset
+
+    parent = np.arange(len(segs))
+
+    def find(a):
+        while parent[a] != a:
+            parent[a] = parent[parent[a]]
+            a = parent[a]
+        return a
+
+    ang_q = angle_tol_deg * np.pi / 180.0
+    for a_off in (0.0, 0.5):
+        for r_off in (0.0, 0.5):
+            tq = np.floor(theta / ang_q + a_off).astype(np.int64)
+            # wrap: theta near pi and near 0 are the same line direction
+            tq_mod = tq % max(int(np.pi / ang_q), 1)
+            rq = np.floor(rho / rho_tol + r_off).astype(np.int64)
+            buckets: dict = {}
+            for i, key in enumerate(zip(tq_mod.tolist(), rq.tolist())):
+                buckets.setdefault(key, []).append(i)
+            for members in buckets.values():
+                if len(members) < 2:
+                    continue
+                m = np.array(members)
+                # project onto the mean direction of the bucket
+                th = theta[m[0]]
+                ux, uy = np.cos(th), np.sin(th)
+                p1 = segs[m, 0] * ux + segs[m, 1] * uy
+                p2 = segs[m, 2] * ux + segs[m, 3] * uy
+                lo = np.minimum(p1, p2)
+                hi = np.maximum(p1, p2)
+                order = np.argsort(lo)
+                for a, b in zip(order[:-1], order[1:]):
+                    if lo[b] - hi[a] <= gap_tol:
+                        ra, rb = find(m[a]), find(m[b])
+                        if ra != rb:
+                            parent[rb] = ra
+
+    roots = np.array([find(i) for i in range(len(segs))])
+
+    # refit: extreme endpoints along each chain's length-weighted mean
+    # direction, grouped by one sort and reduceat
+    order = np.argsort(roots, kind="stable")
+    r_s = roots[order]
+    starts = np.r_[0, np.flatnonzero(r_s[1:] != r_s[:-1]) + 1]
+    sizes = np.diff(np.r_[starts, len(segs)])
+    gid = np.repeat(np.arange(len(starts)), sizes)
+
+    s2 = np.add.reduceat(np.sin(2 * theta[order]) * L[order], starts)
+    c2 = np.add.reduceat(np.cos(2 * theta[order]) * L[order], starts)
+    th_g = 0.5 * np.arctan2(s2, c2)
+    ux, uy = np.cos(th_g), np.sin(th_g)
+
+    # both endpoints of every member, laid out contiguously per group
+    pts = segs[order].reshape(-1, 2, 2).reshape(-1, 2)      # (2n, 2) xy
+    gid2 = np.repeat(gid, 2)
+    t = pts[:, 0] * ux[gid2] + pts[:, 1] * uy[gid2]
+    po = np.lexsort((t, gid2))
+    gstarts2 = 2 * starts
+    gends2 = np.r_[gstarts2[1:], 2 * len(segs)] - 1
+    pmin = pts[po[gstarts2]]
+    pmax = pts[po[gends2]]
+
+    single = sizes == 1
+    out = np.concatenate([pmin, pmax], axis=1)
+    out[single] = segs[order[starts[single]]]
+    return out
 
 
 def _default_device(device):

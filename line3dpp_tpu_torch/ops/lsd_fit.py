@@ -24,7 +24,11 @@ The five passes (JAX package: ``line3dpp_tpu/ops/lsd_fit.py``):
   rectangle's ``mid`` and ``width``, per component and band ``(lo_w, lo_c,
   hi_w, hi_c)`` the number of pixels with ``pix != 0`` and ``lo_w width +
   lo_c <= 2 (w_proj - mid) <= hi_w width + hi_c``, as a (C, B) float32
-  table, B <= 16 (the rescue's 15 width and side cuts in one pass);
+  table, B <= 16;
+* :func:`rescue_counts` (K10's rescue form): on the same tables, the count
+  of the rescue's p/2 retry (K9's gate with ``center = mid``, half-width
+  ``width / 2`` and ``cos_tol``, no dump pixel) in column 0 and the bands'
+  counts after it, (C, B + 1), in one pass;
 * :func:`extents` (K11): per component, over the pixels with ``pix != 0``,
   min l_proj, min w_proj, min -l_proj, min -w_proj as a (C, 4) table,
   ``BIG`` for a component without such pixels.
@@ -33,8 +37,8 @@ Each wrapper launches its CUDA kernel (``csrc/lsd_fit.cu``) for CUDA tensors
 and runs its plain torch version for CPU tensors.  The moment sums are
 accumulated in float64 by both versions (the product terms are float32, as
 in the JAX package), so the two differ only in the last bit of the float32
-result; the extents, the gate and the band counts are exact.  K7, K8 and
-K11 read whole component runs through the run table ``starts``
+result; the extents, the gate and the band counts are exact.  K7, K8, K10
+and K11 read whole component runs through the run table ``starts``
 (:func:`run_starts`); :func:`moments_split` is K7's and K8's split of the
 work, in torch.
 """
@@ -61,7 +65,14 @@ FIT_THREADS_LONG = 512
 CONSUME_THREADS = 256
 CONSUME_ITEMS_SHORT = 2
 CONSUME_ITEMS_LONG = 8
+# kernel K10 (csrc/lsd_fit.cu counts_kernel): its columns, the rescue's
+# p/2 column included; threads a block; the pixels a warp counts in a short
+# and a long list, and blocks an SM of the long layout (count_span)
 MAX_BANDS = 16
+COUNT_THREADS = 128
+COUNT_SPAN_SHORT = 128
+COUNT_SPAN_LONG = 256
+COUNT_BLOCKS_LONG = 4
 # the symmetric width cuts 2 |w_proj - mid| <= width - 0.5 (b + 1)
 SYM_BANDS = tuple((-1.0, 0.5 * (b + 1), 1.0, -0.5 * (b + 1))
                   for b in range(4))
@@ -128,6 +139,19 @@ def consume_items(n: int, sms: int) -> int:
     return CONSUME_ITEMS_LONG if n >= long_list else CONSUME_ITEMS_SHORT
 
 
+def count_span(n: int, sms: int) -> int:
+    """The pixels a warp of K10 counts in a list of ``n`` on a card of
+    ``sms`` SMs, which its wrapper passes to the kernel: a list that fills
+    fewer than one wave of the card in long spans (the facade's rounds,
+    tens of thousands of pixels) is cut into short spans, so each warp's
+    chain of loads is short; a longer one (real photos' round 1, millions)
+    into long spans, which keep more loads in flight.  On an H100 80GB HBM3
+    at 700 W, by ``tests/measure_torch_k10.py --layouts``, 16 columns: 7.9
+    against 10.5 µs on the facade, 66.0 against 74.0 µs at 57% active."""
+    wave = sms * COUNT_BLOCKS_LONG * COUNT_THREADS // 32 * COUNT_SPAN_LONG
+    return COUNT_SPAN_SHORT if n < wave else COUNT_SPAN_LONG
+
+
 def _bands_tensor(bands, device) -> torch.Tensor:
     t = torch.as_tensor(bands, dtype=torch.float32, device=device)
     if t.ndim != 2 or t.shape[1] != 4 or not 1 <= t.shape[0] <= MAX_BANDS:
@@ -152,6 +176,20 @@ def band_counts_plain(slot, xs, ys, pix, tables, C: int,
                       device=slot.device)
     acc.index_add_(0, slot.long(), hit.to(torch.int32))
     return acc[:C].to(torch.float32)
+
+
+def rescue_counts_plain(slot, xs, ys, ang, pix, tables, C: int, bands,
+                        cos_tol: float) -> torch.Tensor:
+    mid, width = tables[:, 4], tables[:, 5]
+    half = tables.clone()
+    half[:, 4] = torch.where(width > 0, 0.5 * width, -1.0)
+    half[:, 5] = mid
+    keep = gate_pixels_plain(slot, xs, ys, ang, pix, half, False, cos_tol, C)
+    acc = torch.zeros((C + 1,), dtype=torch.int32, device=slot.device)
+    acc.index_add_(0, slot.long(), (keep != 0.0).to(torch.int32))
+    return torch.cat([acc[:C, None].to(torch.float32),
+                      band_counts_plain(slot, xs, ys, pix, tables, C, bands)],
+                     dim=1)
 
 
 def run_starts(slot: torch.Tensor, C: int) -> torch.Tensor:
@@ -361,23 +399,24 @@ def gate_pixels_cuda(slot, xs, ys, ang, pix, tables, dump_keep: bool,
     return newpix
 
 
-# per device and stream: the consume form's status words and the epoch of
-# their last call (csrc/lsd_fit.cu look_back); calls on one stream run in
-# order, so they share the words
-_CONSUME_STATUS: dict = {}
+# per kernel, device and stream: the epoch-tagged words of K9's consume
+# form (csrc/lsd_fit.cu look_back) and of K10 (sum_pieces), and the epoch
+# of their last call; calls on one stream run in order, so they share the
+# words
+_STATUS: dict = {}
 
 
-def _consume_status(dev: torch.device, stream: int, tiles: int):
-    """The status words for ``tiles`` tiles and a new epoch.  The buffer is
-    zeroed where it is made (epoch 0 is never passed), so no call needs a
-    memset."""
-    key = (dev.index, stream)
-    words, epoch = _CONSUME_STATUS.get(key, (None, 0))
+def _status_words(kind: str, dev: torch.device, stream: int, count: int):
+    """``count`` status words for kernel ``kind`` and a new epoch.  The
+    buffer is zeroed where it is made (epoch 0 is never passed), so no call
+    needs a memset."""
+    key = (kind, dev.index, stream)
+    words, epoch = _STATUS.get(key, (None, 0))
     epoch += 1
-    if words is None or words.numel() < tiles or epoch >= 2**32:
-        words = torch.zeros(max(tiles, 64), dtype=torch.int64, device=dev)
+    if words is None or words.numel() < count or epoch >= 2**32:
+        words = torch.zeros(max(count, 64), dtype=torch.int64, device=dev)
         epoch = 1
-    _CONSUME_STATUS[key] = (words, epoch)
+    _STATUS[key] = (words, epoch)
     return words, epoch
 
 
@@ -400,8 +439,8 @@ def consume_survivors_into(slot, xs, ys, idx_s, mag_s, ang_s, tables,
     items = consume_items(
         n, torch.cuda.get_device_properties(dev).multi_processor_count)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    words, epoch = _consume_status(
-        dev, stream, -(-n // (CONSUME_THREADS * items)))
+    words, epoch = _status_words(
+        "consume", dev, stream, -(-n // (CONSUME_THREADS * items)))
     p = kernels.ptr
     kernels.launch("l3d_consume_survivors", p(slot), p(xs), p(ys), p(ang_s),
                    p(idx_s), p(mag_s), p(tables), n, C, items,
@@ -422,20 +461,55 @@ def consume_survivors_cuda(slot, xs, ys, idx_s, mag_s, ang_s, tables,
     return idx[:k], mag[:k], ang[:k]
 
 
-def band_counts_cuda(slot, xs, ys, pix, tables, C: int,
-                     bands=SYM_BANDS) -> torch.Tensor:
-    """Kernel K10."""
-    n, dev = _check_pixels(C, tables, slot=slot, xs=xs, ys=ys, pix=pix)
+def _counts_cuda(slot, xs, ys, ang, pix, tables, C: int, bands,
+                 cos_tol: float, starts) -> torch.Tensor:
+    """Kernel K10 over the component runs: the p/2 column first where
+    ``ang`` is given."""
+    planes = dict(slot=slot, xs=xs, ys=ys, pix=pix)
+    if ang is not None:
+        planes["ang"] = ang
+    n, dev = _check_pixels(C, tables, **planes)
+    if n >= 2**24:
+        raise ValueError(f"{n} pixels: kernel K10's float32 counts are "
+                         f"exact below 2^24")
     bands = _bands_tensor(bands, dev)
-    B = bands.shape[0]
-    out = torch.empty((C, B), dtype=torch.float32, device=dev)
-    scratch = torch.empty((C, B), dtype=torch.int32, device=dev)
+    B, half = bands.shape[0], int(ang is not None)
+    if B + half > MAX_BANDS:
+        raise ValueError(f"bands: {B} bands and the p/2 column exceed "
+                         f"{MAX_BANDS} columns")
+    starts = _run_table(slot, C, starts, dev)
+    out = torch.empty((C, B + half), dtype=torch.float32, device=dev)
+    if C == 0:
+        return out
+    span = count_span(
+        n, torch.cuda.get_device_properties(dev).multi_processor_count)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    words, epoch = _status_words("counts", dev, stream,
+                                 -(-n // span) * MAX_BANDS // 2)
     p = kernels.ptr
-    kernels.launch("l3d_band_counts", p(slot), p(xs), p(ys), p(pix),
-                   p(tables), p(bands), n, C, B, p(scratch), p(out),
-                   kernels.stream(dev))
-    kernels.LAUNCHES["band_counts"] += 1
+    kernels.launch("l3d_band_counts", p(slot), p(xs), p(ys),
+                   ctypes.c_void_p(None) if ang is None else p(ang), p(pix),
+                   p(tables), p(bands), p(starts), n, C, B, half, span,
+                   ctypes.c_float(cos_tol), p(words), words.numel(), epoch,
+                   p(out), ctypes.c_void_p(stream))
+    kernels.LAUNCHES["rescue_counts" if half else "band_counts"] += 1
     return out
+
+
+def band_counts_cuda(slot, xs, ys, pix, tables, C: int, bands=SYM_BANDS,
+                     starts=None) -> torch.Tensor:
+    """Kernel K10 over the component runs (``starts`` as for
+    :func:`extents_cuda`)."""
+    return _counts_cuda(slot, xs, ys, None, pix, tables, C, bands, 0.0,
+                        starts)
+
+
+def rescue_counts_cuda(slot, xs, ys, ang, pix, tables, C: int, bands,
+                       cos_tol: float, starts=None) -> torch.Tensor:
+    """Kernel K10's rescue form, one launch (``starts`` as for
+    :func:`extents_cuda`)."""
+    return _counts_cuda(slot, xs, ys, ang, pix, tables, C, bands, cos_tol,
+                        starts)
 
 
 def extents_cuda(slot, xs, ys, pix, tables, C: int,
@@ -507,10 +581,24 @@ def extents(slot, xs, ys, pix, tables, C: int,
     return extents_plain(slot, xs, ys, pix, tables, C)
 
 
-def band_counts(slot, xs, ys, pix, tables, C: int,
-                bands=SYM_BANDS) -> torch.Tensor:
+def band_counts(slot, xs, ys, pix, tables, C: int, bands=SYM_BANDS,
+                starts=None) -> torch.Tensor:
     """Pixel counts of every component in each band; ``bands`` is a (B, 4)
-    tensor or nested sequence, the default the 4 symmetric width cuts."""
+    tensor or nested sequence, the default the 4 symmetric width cuts;
+    ``starts``: the run table, as for :func:`extents`."""
     if slot.is_cuda:
-        return band_counts_cuda(slot, xs, ys, pix, tables, C, bands)
+        return band_counts_cuda(slot, xs, ys, pix, tables, C, bands, starts)
     return band_counts_plain(slot, xs, ys, pix, tables, C, bands)
+
+
+def rescue_counts(slot, xs, ys, ang, pix, tables, C: int, bands,
+                  cos_tol: float, starts=None) -> torch.Tensor:
+    """The rescue cascade's counts, (C, B + 1): column 0 the pixels that
+    K9's gate keeps at ``cos_tol`` in the band ``|w_proj - mid| <= width /
+    2`` (none where width <= 0), columns 1.. those of :func:`band_counts`;
+    ``starts``: the run table, as for :func:`extents`."""
+    if slot.is_cuda:
+        return rescue_counts_cuda(slot, xs, ys, ang, pix, tables, C, bands,
+                                  cos_tol, starts)
+    return rescue_counts_plain(slot, xs, ys, ang, pix, tables, C, bands,
+                               cos_tol)

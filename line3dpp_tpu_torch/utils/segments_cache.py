@@ -2,8 +2,9 @@
 
 Mirrors the reference's per-image segment caches (reference:
 line3D.cc:296-309, 362-366) with `.npz` files keyed as ``line3dpp_tpu``'s
-cache is, so both packages read and write the same files.  Importing a
-reference Line3D++ ``.bin`` cache is ROADMAP item 12.
+cache is, so both packages read and write the same files.  Where a view has
+no such file, a reference Line3D++ ``.bin`` cache of it is imported, as
+``line3dpp_tpu`` imports it.
 """
 
 from __future__ import annotations
@@ -13,6 +14,8 @@ import os
 import re
 
 import numpy as np
+
+from . import ref_bin
 
 
 def _path(cache_dir: str, cam_id: int, shape, max_segments: int,
@@ -60,7 +63,10 @@ def _reference_path(cache_dir: str, cam_id: int, shape,
 def load(cache_dir: str, cam_id: int, shape, max_segments: int,
          max_width: int = -1) -> np.ndarray | None:
     """Cached (n, 4) segments of view ``cam_id``, or None when not cached
-    or unreadable (the view is then detected again)."""
+    or unreadable (the view is then detected again).  Without the port's
+    own file, a reference Line3D++ cache of the view (its coordinates
+    already at full resolution) is imported, with a line saying so; an
+    unreadable one gives None and a warning."""
     p = _path(cache_dir, cam_id, shape, max_segments, max_width)
     if os.path.exists(p):
         try:
@@ -69,11 +75,17 @@ def load(cache_dir: str, cam_id: int, shape, max_segments: int,
         except Exception:
             return None
     ref = _reference_path(cache_dir, cam_id, shape, max_width)
-    if ref is not None:
-        raise NotImplementedError(
-            f"importing the reference Line3D++ segment cache {ref} is not "
-            f"ported yet (ROADMAP item 12)")
-    return None
+    if ref is None:
+        return None
+    try:
+        segs = ref_bin.load_reference_segments_bin(ref)
+    except Exception as e:
+        print(f"[L3D-TPU] warning: unreadable reference segment cache "
+              f"{ref}: {e}", flush=True)
+        return None
+    print(f"[L3D-TPU] imported {len(segs)} segments from reference cache "
+          f"{os.path.basename(ref)}", flush=True)
+    return segs
 
 
 def store(cache_dir: str, cam_id: int, shape, max_segments: int,

@@ -1,8 +1,10 @@
-"""Result writers: STL / OBJ / TXT.
+"""Result writers: STL / OBJ / TXT / BIN.
 
 Formats match the reference byte-for-byte in structure (reference:
 line3D.cc:2465-2711), and the bytes equal those of ``line3dpp_tpu``'s writers
-on the same lines.  The ``.bin`` formats are ROADMAP item 12.
+on the same lines.  ``.bin`` is either the reference's boost binary archive
+(``ref_bin.save_bin_boost``) or a numpy ``.npz`` (:func:`save_bin`, which
+also keeps the residuals' 2D endpoints); :func:`load_bin` reads both.
 """
 
 from __future__ import annotations
@@ -68,6 +70,38 @@ def save_obj(path: str, lines: list[FinalLine3D]) -> None:
                 n_pts += 2
         for i in range(1, n_pts, 2):
             f.write(f"l {i} {i + 1}\n")
+
+
+def save_bin(path: str, lines: list[FinalLine3D]) -> None:
+    """The result as a compressed numpy archive, under ``path`` as given."""
+    seg_counts = np.array([len(l.segments3d) for l in lines], dtype=np.int64)
+    res_counts = np.array([len(l.residuals) for l in lines], dtype=np.int64)
+    segs = (np.concatenate([l.segments3d for l in lines], axis=0)
+            if lines else np.zeros((0, 6)))
+    ress = (np.concatenate([l.residuals for l in lines], axis=0)
+            if lines else np.zeros((0, 6)))
+    # through a file handle, so that numpy does not append ".npz"
+    with open(path, "wb") as f:
+        np.savez_compressed(f, seg_counts=seg_counts, res_counts=res_counts,
+                            segments=segs, residuals=ress)
+
+
+def load_bin(path: str) -> list[FinalLine3D]:
+    """A ``.bin`` result in either format: a boost binary archive (the
+    reference's, and ``Line3D.save_bin``'s default) or the npz variant."""
+    with open(path, "rb") as f:
+        head = f.read(30)
+    if b"serialization::archive" in head:
+        from .ref_bin import load_reference_bin
+        return load_reference_bin(path)
+    with np.load(path) as data:
+        segs, ress = data["segments"], data["residuals"]
+        seg_counts, res_counts = data["seg_counts"], data["res_counts"]
+    so = np.concatenate([[0], np.cumsum(seg_counts)])
+    ro = np.concatenate([[0], np.cumsum(res_counts)])
+    return [FinalLine3D(segments3d=segs[so[i]:so[i + 1]],
+                        residuals=ress[ro[i]:ro[i + 1]])
+            for i in range(len(seg_counts))]
 
 
 def _fmt(v: float) -> str:

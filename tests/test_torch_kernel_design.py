@@ -1,4 +1,4 @@
-"""What kernels K1, K2, K4 and K11 assume of the Python around them, on
+"""What kernels K1, K2, K4, K7-K11 assume of the Python around them, on
 the CPU.
 
 - K4 (``csrc/lsd_cc.cu``) labels patches of ``lsd_cc.cc_patch(tile)`` in
@@ -28,6 +28,14 @@ the CPU.
   pixel is gated once and every component's row written once, on lists
   with short, tile-sized, long and empty components and dump pixels
   anywhere, for several block counts.
+- K10 (``csrc/lsd_fit.cu`` ``counts_kernel``) counts in one launch: a
+  warp counts its own span only and posts the piece of a run that leaves
+  it; the warp where the run ends sums the pieces back to the run's head,
+  which it finds in the same table.  ``count_split`` below is that split,
+  lane by lane; here every component's row is written once, where its run
+  ends, every posted piece is summed once and no warp waits on a piece
+  nobody posts, and the rows it assembles are the plain counts, on the
+  K7/K8 lists and several span lengths.
 - K9's consume form (``csrc/lsd_fit.cu`` ``gate_kernel<true>``) compacts
   the survivors in one pass: each block ranks one tile's survivors by warp
   ballots and a prefix over the warps, and finds the tile's offset by
@@ -638,6 +646,172 @@ def test_k7_k8_rows_are_the_sums_over_the_run_table(name):
 
 
 # ---------------------------------------------------------------------------
+# K10: the split of the counting over the runs
+# ---------------------------------------------------------------------------
+
+# the pixels a lane of kernel K10 counts in its short layout
+K10_ITEMS = lsd_fit.COUNT_SPAN_SHORT // 32
+
+
+def count_split(slot, C: int, starts, items: int, hits=None) -> dict:
+    """The split of the work in kernel K10 (``counts_kernel`` in
+    ``csrc/lsd_fit.cu``) over a slot list whose components are runs.
+
+    Warp g counts the span ``[32 items g, 32 items (g + 1))``, lane l its
+    ``items`` consecutive pixels from ``32 items g + items l``, and nothing
+    else.  A lane writes the row of a run that begins and ends in it, of
+    its first run where that ends in it, and of its last run where the next
+    lane's (lane 31: the next span's) first pixel is another's.  The warp
+    whose span a run leaves posts the run's piece (its pixels in the span);
+    the warp where a run begun in an earlier span ends sums the pieces of
+    the spans from the run's head (``starts[c] // span``) to its own.
+
+    Returns per span ``posted`` and ``summed`` (how often its piece is
+    summed), per component ``writes`` (how often its row is written) and
+    ``writer`` (the span whose lane writes it, -1 for the blocks past the
+    pixel blocks, which write the rows of the components with no pixel),
+    and ``unposted_reads`` (pieces summed that no warp posts: a wait
+    forever on the card).  With ``hits`` (per pixel, the columns it adds),
+    also ``counts``: each row as the kernel assembles it."""
+    slot = np.asarray(slot, np.int64)
+    n = len(slot)
+    starts = np.asarray(starts, np.int64)
+    nxt = np.append(starts, n)
+    span = 32 * items
+    real = (slot >= 0) & (slot < C)
+    spans = -(-n // span)
+    posted = np.zeros(spans, bool)
+    summed = np.zeros(spans, np.int64)
+    writes = np.zeros(C, np.int64)
+    writer = np.full(C, -1, np.int64)
+    cols = 0 if hits is None else hits.shape[1]
+    counts = np.zeros((C, cols), np.int64)
+    unposted = 0
+
+    def piece(c, g):
+        lo, hi = g * span, min((g + 1) * span, n)
+        own = np.nonzero(slot[lo:hi] == c)[0] + lo
+        return hits[own].sum(0) if hits is not None else 0
+
+    sums = []
+    for g in range(spans):
+        w0, hi = g * span, min((g + 1) * span, n)
+        key = np.full(span, -1, np.int64)
+        key[:hi - w0] = np.where(real[w0:hi], slot[w0:hi], -1)
+        after = slot[hi] if hi < n else -1
+        if key[hi - w0 - 1] >= 0 and after == key[hi - w0 - 1]:
+            posted[g] = True
+        head = key[0]
+        if head >= 0 and w0 > 0 and slot[w0 - 1] == head and not (
+                (key == head).all() and after == head):
+            sums.append((head, starts[head] // span, g))
+        lanes = key.reshape(32, items)
+        for l in range(32):
+            k = lanes[l]
+            cuts = [0] + [j for j in range(1, items) if k[j] != k[j - 1]]
+            pieces = [k[j] for j in cuts]
+            ended = [kk for kk in pieces[1:-1] if kk >= 0]
+            if len(pieces) > 1 and pieces[0] >= 0:
+                ended.append(pieces[0])
+            nxt_key = lanes[l + 1][0] if l < 31 else after
+            if pieces[-1] >= 0 and nxt_key != pieces[-1]:
+                ended.append(pieces[-1])
+            for kk in ended:
+                writes[kk] += 1
+                writer[kk] = g
+                if hits is not None:
+                    counts[kk] += piece(kk, g)
+    for c, g0, g in sums:
+        for j in range(g0, g):
+            summed[j] += 1
+            unposted += not posted[j]
+            if hits is not None:
+                counts[c] += piece(c, j)
+    for c in range(C):
+        if nxt[c] >= nxt[c + 1]:
+            writes[c] += 1                  # no pixel
+    return dict(posted=posted, summed=summed, writes=writes, writer=writer,
+                unposted_reads=unposted, counts=counts)
+
+
+@pytest.mark.parametrize("items", [K10_ITEMS, 8, 12],
+                         ids=lambda v: f"{v}items")
+@pytest.mark.parametrize("name", SPLIT_CASES)
+def test_k10_split_writes_every_row_once(name, items):
+    """Each component's row is written once, by the warp of the span where
+    its run ends (a component with no pixel past the pixel blocks); every
+    piece a warp posts is summed once, by that warp, and no warp waits on
+    a piece that no warp posts; a run of thousands of pixels (the
+    facade's) is posted by every span it leaves."""
+    slot, C = _split_case(name)
+    t = torch.from_numpy(slot)
+    lsd_fit.check_runs(t, C)
+    starts = lsd_fit.run_starts(t, C).numpy().astype(np.int64)
+    split = count_split(slot, C, starts, items)
+    assert np.array_equal(split["writes"], np.ones(C, np.int64))
+    assert split["unposted_reads"] == 0
+    assert np.array_equal(split["summed"], split["posted"].astype(np.int64))
+    n, span = len(slot), 32 * items
+    nxt = np.append(starts, n)
+    empty = starts >= nxt[1:]
+    assert (split["writer"][empty] == -1).all()
+    for c in np.nonzero(~empty)[0]:
+        last = np.nonzero(slot == c)[0][-1]
+        assert split["writer"][c] == last // span
+    if name == "long":
+        assert split["posted"].sum() > 7208 // span
+
+
+@pytest.mark.parametrize("items", [K10_ITEMS, 8])
+@pytest.mark.parametrize("name", ["random_sorted", "long", "empty"])
+def test_k10_split_counts_as_the_plain_version(name, items):
+    """The rows the split assembles (each lane's pieces and the pieces
+    summed from the posted words) equal ``rescue_counts_plain``: a split
+    that dropped or doubled a pixel would not."""
+    slot, C = _split_case(name)
+    rng = np.random.default_rng(len(slot))
+    n = len(slot)
+    tables, ang = random_tables(rng, C, n)
+    tables[:, 4] = rng.uniform(-3, 3, C)
+    tables[:, 5] = rng.uniform(0.5, 12.0, C)
+    row = tables[np.minimum(slot, C - 1)]
+    along, across = rng.uniform(-60, 60, n), rng.uniform(-8, 8, n)
+    xs = np.rint(row[:, 2] + along * row[:, 0] - across * row[:, 1]
+                 ).astype(np.float32)
+    ys = np.rint(row[:, 3] + along * row[:, 1] + across * row[:, 0]
+                 ).astype(np.float32)
+    pix = (rng.uniform(size=n) < 0.9).astype(np.float32)
+    t = [torch.from_numpy(v) for v in (slot, xs, ys, ang, pix, tables)]
+    want = lsd_fit.rescue_counts_plain(*t, C, lsd.RESCUE_BANDS,
+                                       lsd.COS_GATE_HALF)
+    starts = lsd_fit.run_starts(t[0], C).numpy()
+    split = count_split(slot, C, starts, items, _pixel_hits(t, C))
+    assert np.array_equal(split["counts"], want.numpy().astype(np.int64))
+    assert want.sum() > 0
+
+
+def _pixel_hits(t, C):
+    """Each pixel's 16 columns (the p/2 retry, then the 15 bands) as the
+    plain versions decide them, (n, 16)."""
+    slot, xs, ys, ang, pix, tables = t
+    bands = torch.tensor(lsd.RESCUE_BANDS)
+    row, valid = lsd_fit._rows(slot, tables, C)
+    ct, st, cx, cy, mid, width = row[:, :6].unbind(1)
+    w_proj = -(xs - cx) * st + (ys - cy) * ct
+    s = (2.0 * (w_proj - mid))[:, None]
+    lo = bands[None, :, 0] * width[:, None] + bands[None, :, 1]
+    hi = bands[None, :, 2] * width[:, None] + bands[None, :, 3]
+    live = ((pix != 0.0) & valid)[:, None]
+    band = live & (s >= lo) & (s <= hi)
+    half = tables.clone()
+    half[:, 4] = torch.where(tables[:, 5] > 0, 0.5 * tables[:, 5], -1.0)
+    half[:, 5] = tables[:, 4]
+    p2 = lsd_fit.gate_pixels_plain(slot, xs, ys, ang, pix, half, False,
+                                   lsd.COS_GATE_HALF, C) != 0.0
+    return torch.cat([p2[:, None], band], 1).numpy().astype(np.int64)
+
+
+# ---------------------------------------------------------------------------
 # K9's consume form: the tiles and the look-back of the compaction
 # ---------------------------------------------------------------------------
 
@@ -823,3 +997,22 @@ def test_k9_consume_layout_follows_the_list_length(sms):
     tile = lsd_fit.CONSUME_THREADS * lsd_fit.CONSUME_ITEMS_SHORT
     assert int(split["tile"].max()) == (45347 - 1) // tile
     assert int(split["item"].max()) == lsd_fit.CONSUME_ITEMS_SHORT - 1
+
+
+@pytest.mark.parametrize("sms", [H100_SMS, 114, 16])
+def test_k10_span_follows_the_list_length(sms):
+    """Lists that fill less than one wave of the card in long spans (on an
+    H100 the facade's round 1: 45,347 pixels) take short spans, longer ones
+    (real photos' density) long spans, whatever the card's SM count; both
+    are whole lanes of whole 4-pixel loads, and the split counts in either
+    exactly as the plain version (``test_k10_split_*``)."""
+    short, long_ = lsd_fit.COUNT_SPAN_SHORT, lsd_fit.COUNT_SPAN_LONG
+    wave = (sms * lsd_fit.COUNT_BLOCKS_LONG * lsd_fit.COUNT_THREADS // 32
+            * long_)
+    assert lsd_fit.count_span(2801668, sms) == long_
+    assert lsd_fit.count_span(wave - 1, sms) == short
+    assert lsd_fit.count_span(wave, sms) == long_
+    assert lsd_fit.count_span(0, sms) == short
+    assert lsd_fit.count_span(45347, H100_SMS) == short
+    for span in (short, long_):
+        assert span % (32 * 4) == 0 and span // 32 in (K10_ITEMS, 8)

@@ -5,9 +5,11 @@ function reaches a Pallas kernel it runs in interpret mode, as the JAX
 package's own tests run it.  Tolerances, with what was measured here:
 
 * K4 (tile labels), the border merge, K5/K6 (the label gathers, and K6's
-  merged gather against both of the JAX package's forms) and K9 (gate,
+  merged gather against both of the JAX package's forms), K9 (gate,
   and its consume form against the gate and the JAX package's stable
-  survivors-first partition): exact.
+  survivors-first partition) and K10's rescue form (the p/2 count and the
+  15 bands in one pass, against the JAX package's two ``band_counts``
+  launches and its ``gate_pixels`` + ``segment_sum`` count): exact.
 * K7/K8 sums: rtol 1e-5.  The port sums the float32 terms in float64, the
   interpret-mode kernel in float32 one-hot matrix products (measured
   largest relative difference ~1e-6).
@@ -361,6 +363,81 @@ def test_k9_consume_survivors_matches_jax(fit_case, case):
         assert k == n
     if case in ("random", "gates_off"):
         assert 0 < int(consumed.sum()) < n - int(dump.sum())
+
+
+# ---------------------------------------------------------------------------
+# K10's rescue form
+# ---------------------------------------------------------------------------
+
+def _rescue_case(seed):
+    """The seeded sorted-slot case with band tables (the rectangle's mid
+    in column 4, its width in column 5, a few widths <= 0), pixels moved
+    to integer positions within 40 px along and 8 px across their
+    component's axis and angles near it, so that every column holds
+    pixels."""
+    rng = np.random.default_rng(seed)
+    c = 256
+    slot, _, _, _, pix = random_sorted_case(rng)
+    n = len(slot)
+    tables, _ = random_tables(rng, c, n)
+    tables[:, 4] = rng.uniform(-3, 3, c)
+    tables[:, 5] = rng.uniform(-1.0, 12.0, c)
+    row = tables[np.minimum(slot, c - 1)]
+    along, across = rng.uniform(-40, 40, n), rng.uniform(-8, 8, n)
+    xs = np.rint(row[:, 2] + along * row[:, 0] - across * row[:, 1]
+                 ).astype(np.float32)
+    ys = np.rint(row[:, 3] + along * row[:, 1] + across * row[:, 0]
+                 ).astype(np.float32)
+    ang = (np.arctan2(row[:, 1], row[:, 0])
+           + rng.normal(0.0, 0.3, n)).astype(np.float32)
+    return c, slot, xs, ys, ang, pix, tables
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_k10_rescue_counts_match_jax(seed):
+    """K10's rescue form (one pass) against what the JAX package's rescue
+    computes on its TPU path (``line3dpp_tpu/ops/lsd.py:637-673``): the 15
+    bands in two ``band_counts`` launches of 8 and 7, the p/2 retry through
+    ``gate_pixels`` with the band ``|w_proj - mid| <= width / 2`` at half
+    the angle tolerance and ``segment_sum``; interpret mode; exact."""
+    c, slot, xs, ys, ang, pix, tables = _rescue_case(seed)
+    got = lsd_fit.rescue_counts(*_t(slot, xs, ys, ang, pix, tables), c,
+                                lsd.RESCUE_BANDS, lsd.COS_GATE_HALF)
+    assert got.dtype == torch.float32 and got.shape == (c, 16)
+    sym = lambda k: (-1.0, 0.5 * k, 1.0, -0.5 * k)
+    side_a = lambda k: (-1.0, float(k), 1.0, 0.0)
+    side_b = lambda k: (-1.0, 0.0, 1.0, -float(k))
+    bands_1 = tuple(sym(k) for k in (1, 2, 3, 4)) + tuple(
+        side_a(k) for k in (1, 2, 3, 4))
+    bands_2 = tuple(side_b(k) for k in (1, 2, 3, 4)) + (
+        sym(5), side_a(5), side_b(5))
+    j = [jnp.asarray(v) for v in (slot, xs, ys, ang, pix)]
+    jt = _jax_tables(tables)
+    c1 = jfit.band_counts(j[0], j[1], j[2], j[4], jt, c, bands=bands_1,
+                          interpret=True)
+    c2 = jfit.band_counts(j[0], j[1], j[2], j[4], jt, c, bands=bands_2,
+                          interpret=True)
+    width, mid = tables[:, 5], tables[:, 4]
+    half = tables.copy()
+    half[:, 4] = np.where(width > 0, 0.5 * width, -1.0)
+    half[:, 5] = mid
+    pix_half = jfit.gate_pixels(
+        *j, _jax_tables(half), jnp.bool_(False),
+        jnp.float32(math.cos(math.radians(jlsd.ANG_TH / 2))), c,
+        interpret=True)
+    k_half = jax.ops.segment_sum(pix_half, j[0], c + 1)[:c]
+    want = np.concatenate([np.asarray(k_half)[:, None],
+                           np.asarray(c1)[:8, :c].T,
+                           np.asarray(c2)[:7, :c].T], axis=1)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert (want.sum(0) > 0).all()
+    assert lsd.COS_GATE_HALF == float(
+        np.float32(math.cos(math.radians(jlsd.ANG_TH / 2))))
+    # the bands' columns are band_counts' on the same inputs
+    np.testing.assert_array_equal(
+        got[:, 1:].numpy(),
+        lsd_fit.band_counts(*_t(slot, xs, ys, pix, tables), c,
+                            lsd.RESCUE_BANDS).numpy())
 
 
 # ---------------------------------------------------------------------------

@@ -9,6 +9,7 @@ On a machine with a card and without JAX (the root conftest imports JAX)::
         tests/test_torch_lsd_cuda.py
 """
 
+import ctypes
 import importlib.util
 import math
 import os
@@ -623,6 +624,34 @@ def test_k7_k8_take_only_the_two_layouts(cuda):
     assert out[0, 6] == 8 and out[0, 0] == 8
 
 
+def test_k10_takes_only_the_two_spans(cuda):
+    """K10 launches at the spans count_span chooses and refuses any other
+    span, and status words too few for the span."""
+    n = 300
+    slot = torch.zeros(n, dtype=torch.int32, device=cuda)
+    ones = torch.ones(n, device=cuda)
+    tables = torch.zeros((1, 8), device=cuda)
+    tables[0, 0], tables[0, 5] = 1.0, 1e4
+    bands = torch.tensor(lsd_fit.SYM_BANDS, device=cuda)
+    starts = torch.zeros(1, dtype=torch.int32, device=cuda)
+    words = torch.zeros(64, dtype=torch.int64, device=cuda)
+    p, stream = kernels.ptr, kernels.stream(cuda)
+    want = lsd_fit.band_counts_plain(slot, ones, ones, ones, tables, 1)
+    for epoch, (span, n_words) in enumerate(
+            ((lsd_fit.COUNT_SPAN_SHORT, 24), (lsd_fit.COUNT_SPAN_LONG, 16),
+             (lsd_fit.COUNT_SPAN_SHORT, 16), (64, 64), (512, 64)), 1):
+        out = torch.full((1, 4), -1.0, device=cuda)
+        rc = kernels.library().l3d_band_counts(
+            p(slot), p(ones), p(ones), None, p(ones), p(tables), p(bands),
+            p(starts), n, 1, 4, 0, span, ctypes.c_float(0.0), p(words),
+            n_words, epoch, p(out), stream)
+        ok = span in (lsd_fit.COUNT_SPAN_SHORT, lsd_fit.COUNT_SPAN_LONG) and (
+            -(-n // span) * lsd_fit.MAX_BANDS // 2 <= n_words)
+        assert (rc == 0) == ok
+        torch.cuda.synchronize()
+        assert torch.equal(out, want) == ok
+
+
 def test_k7_k8_refuse_a_split_component_without_a_run_table(cuda):
     rng = np.random.default_rng(3)
     tables = torch.from_numpy(random_tables(rng, 2, 1)[0]).to(cuda)
@@ -643,18 +672,14 @@ def _band_tables(rng, tables):
     return t
 
 
-@pytest.mark.parametrize("bands", [lsd_fit.SYM_BANDS, lsd.RESCUE_BANDS,
-                                   lsd.RESCUE_BANDS + lsd_fit.SYM_BANDS[:1]],
-                         ids=["sym4", "rescue15", "full16"])
-def test_k10_equals_plain_exactly(cuda, bands):
-    """K10 on the random sorted-slot case of tests/test_lsd_fit.py and at
-    a detection size (300k pixels moved to within 8 px of their
-    component's axis, so the bands hold pixels): integer counts, equal to
-    the plain version."""
-    rng = np.random.default_rng(0)
+def _k10_cases(rng):
+    """K10's inputs: the random sorted-slot case of tests/test_lsd_fit.py
+    and a detection-sized one (300k pixels moved to within 8 px of their
+    component's axis and angles near it, so the bands and the p/2 column
+    hold pixels), as (slot, xs, ys, ang, pix, tables, C)."""
     slot, xs, ys, _, pix = random_sorted_case(rng)
-    tables = _band_tables(rng, random_tables(rng, 256, len(slot))[0])
-    small = (slot, xs, ys, pix, tables, 256)
+    tables, ang = random_tables(rng, 256, len(slot))
+    small = (slot, xs, ys, ang, pix, _band_tables(rng, tables), 256)
     slot, xs, ys, _, pix, tables, _, c = _big_sorted_case(4)
     tables = _band_tables(rng, tables)
     row = tables[np.minimum(slot, c - 1)]
@@ -664,8 +689,20 @@ def test_k10_equals_plain_exactly(cuda, bands):
         np.float32)
     ys = np.rint(row[:, 3] + along * row[:, 1] + across * row[:, 0]).astype(
         np.float32)
-    for slot, xs, ys, pix, tables, c in (small, (slot, xs, ys, pix, tables,
-                                                 c)):
+    ang = (np.arctan2(row[:, 1], row[:, 0])
+           + rng.normal(0.0, 0.3, len(slot))).astype(np.float32)
+    return small, (slot, xs, ys, ang, pix, tables, c)
+
+
+@pytest.mark.parametrize("bands", [lsd_fit.SYM_BANDS, lsd.RESCUE_BANDS,
+                                   lsd.RESCUE_BANDS + lsd_fit.SYM_BANDS[:1]],
+                         ids=["sym4", "rescue15", "full16"])
+def test_k10_equals_plain_exactly(cuda, bands):
+    """K10 on the cases of ``_k10_cases``: integer counts, equal to the
+    plain version, one launch a call, with the run table given or built,
+    and the same in a second call."""
+    for slot, xs, ys, _, pix, tables, c in _k10_cases(
+            np.random.default_rng(0)):
         t = [torch.from_numpy(v).to(cuda) for v in (slot, xs, ys, pix,
                                                     tables)]
         before = kernels.LAUNCHES["band_counts"]
@@ -674,9 +711,49 @@ def test_k10_equals_plain_exactly(cuda, bands):
         want = lsd_fit.band_counts_plain(*t, c, bands)
         assert got.shape == (c, len(bands)) and got.dtype == torch.float32
         assert torch.equal(got, want)
+        starts = lsd_fit.run_starts(t[0], c)
+        assert torch.equal(lsd_fit.band_counts(*t, c, bands, starts), got)
         assert torch.equal(got.cpu(), lsd_fit.band_counts(
             *[v.cpu() for v in t], c, bands))
     assert float(got.sum()) > 1e5
+
+
+def test_k10_rescue_counts_equal_plain_exactly(cuda):
+    """K10's rescue form (the p/2 column and the 15 bands, one launch) on
+    the cases of ``_k10_cases``, a list whose components are empty or
+    dump only, and an empty list: equal to its plain version, and to
+    ``band_counts`` in the bands' columns; the same in a second call."""
+    cases = list(_k10_cases(np.random.default_rng(1)))
+    n = 3000
+    slot = np.full(n, 9, np.int32)
+    slot[100:1400] = 2
+    slot[2000:2900] = 6
+    rng = np.random.default_rng(2)
+    cases.append((slot, rng.integers(0, 500, n).astype(np.float32),
+                  rng.integers(0, 300, n).astype(np.float32),
+                  rng.uniform(-np.pi, np.pi, n).astype(np.float32),
+                  np.ones(n, np.float32),
+                  _band_tables(rng, random_tables(rng, 9, n)[0]), 9))
+    z = np.zeros(0, np.float32)
+    cases.append((np.zeros(0, np.int32), z, z, z, z,
+                  _band_tables(rng, random_tables(rng, 4, 0)[0]), 4))
+    sums = []
+    for slot, xs, ys, ang, pix, tables, c in cases:
+        t = [torch.from_numpy(v).to(cuda) for v in (slot, xs, ys, ang, pix,
+                                                    tables)]
+        args = (*t, c, lsd.RESCUE_BANDS, lsd.COS_GATE_HALF)
+        before = kernels.LAUNCHES["rescue_counts"]
+        got = lsd_fit.rescue_counts(*args, lsd_fit.run_starts(t[0], c))
+        assert kernels.LAUNCHES["rescue_counts"] == before + 1
+        want = lsd_fit.rescue_counts_plain(*args)
+        assert got.shape == (c, 16) and got.dtype == torch.float32
+        assert torch.equal(got, want)
+        assert torch.equal(lsd_fit.rescue_counts(*args), got)
+        assert torch.equal(got[:, 1:], lsd_fit.band_counts(
+            t[0], t[1], t[2], t[4], t[5], c, lsd.RESCUE_BANDS))
+        sums.append(got.sum(0))
+    # every column holds pixels at the detection size
+    assert bool((sums[1] > 0).all())
 
 
 def test_rescue_detection_on_cuda_matches_cpu(cuda):
@@ -691,7 +768,14 @@ def test_rescue_detection_on_cuda_matches_cpu(cuda):
         kernels.reset_launches()
         st_g, st_c = [], []
         got = lsd.detect_batch([img], device=cuda, stats=st_g, **opts)[0]
-        assert kernels.LAUNCHES["band_counts"] == 3
+        # three rounds: the rescue form under rescue, the 4-band form
+        # under rect_improve
+        n_rescue = 3 if opts.get("rescue") else 0
+        assert kernels.LAUNCHES["rescue_counts"] == n_rescue
+        assert kernels.LAUNCHES["band_counts"] == 3 - n_rescue
+        if opts == dict(rescue=True):
+            # the p/2 retry is a column of K10's rescue form: no K9 gate
+            assert kernels.LAUNCHES["gate_pixels"] == 0
         want = lsd.detect_batch([img], device="cpu", stats=st_c, **opts)[0]
         assert st_g[0]["n_rescue"] == st_c[0]["n_rescue"]
         assert st_g[0]["n_split"] == st_c[0]["n_split"]
@@ -760,6 +844,9 @@ def test_empty_and_componentless_inputs(cuda):
         (0, 4)
     assert lsd_fit.band_counts_cuda(slot, ones, ones, ones, tab, 0).shape == \
         (0, 4)
+    assert lsd_fit.rescue_counts_cuda(slot, ones, ones, ones, ones, tab, 0,
+                                      lsd.RESCUE_BANDS,
+                                      lsd.COS_GATE_HALF).shape == (0, 16)
 
 
 def test_detect_on_cuda_matches_cpu(cuda):

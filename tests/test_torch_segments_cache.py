@@ -1,9 +1,10 @@
 """The port's segment cache (``line3dpp_tpu_torch/utils/segments_cache``)
 against the JAX package's on the same directories: an unreadable ``.npz``
 and a reference ``.bin`` of another size give None in both (the view is
-detected again); a reference ``.bin`` that JAX would import makes the port
-raise, naming ROADMAP item 12; the port's writer round-trips and leaves no
-temporary file."""
+detected again); a reference ``.bin`` that JAX imports the port imports
+too, and an unreadable one gives None in both, with a warning; the port's
+writer round-trips and leaves no temporary file.  (Readable reference
+caches: ``tests/test_torch_formats.py``.)"""
 
 import os
 
@@ -60,21 +61,23 @@ def test_reference_bin_of_another_size_gives_none_in_both(tmp_path, dw, dh,
     (1280, 960, -1), (1281, 960, -1), (1279, 959, -1), (1280, 958, -1),
     (640, 480, 640), (641, 481, 640), (1280, 960, 2000)])
 def test_reference_bin_within_2px_raises_where_jax_imports(tmp_path, w, h,
-                                                           max_width):
-    """Within 2 px of the expected processed size JAX imports the file
-    (this one is empty, so JAX warns and detects again); the port finds
-    the same file and raises, naming the ROADMAP item that ports the
-    import."""
+                                                           max_width,
+                                                           capsys):
+    """Within 2 px of the expected processed size both packages import the
+    file; this one is empty, so both warn and give None (the view is
+    detected again).  The port no longer raises there: it imports as JAX
+    does."""
     path = _bin(tmp_path, 6, w, h)
     _bin(tmp_path, 6, w + 50, h)                    # another size beside it
     _bin(tmp_path, 7, w, h)                         # another view
     args = (str(tmp_path), 6, SHAPE, max_width)
     assert jax_cache._reference_path(*args) == path
     assert segments_cache._reference_path(*args) == path
-    with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
-        segments_cache.load(str(tmp_path), 6, SHAPE, MAX_SEGMENTS, max_width)
-    assert jax_cache.load(str(tmp_path), 6, SHAPE, MAX_SEGMENTS,
-                          max_width) is None
+    port, jax = _both(tmp_path, 6, max_width=max_width)
+    assert port is None and jax is None
+    out = capsys.readouterr().out.splitlines()
+    assert len(out) == 2 and out[0] == out[1]
+    assert "unreadable reference segment cache" in out[0] and path in out[0]
 
 
 @pytest.mark.parametrize("max_width", [-1, 640])
