@@ -23,7 +23,18 @@
    K1-K3 to have launched, ``load_bin`` of both ``.bin`` files to give the
    lines back, and the result to match ``testdata/out/...__vis_3.txt``
    (2276 lines) within 1% of its line count and at count_f1 >= 0.99 (1%
-   scene scale).
+   scene scale).  Then the worldpoint neighbours end to end: the COLMAP
+   model ``testdata/colmap_model/`` read with ``io.read_colmap`` and the
+   26 cached segment sets through ``add_view(worldpoints=...)``
+   (``colmap_phase``), and the item-13 options on the 26 views, the
+   reference's (``perform_rdd``, ``collinearity_t``) and the repository's
+   compensations (``split_bimodal_t``, ``split_strong_min``,
+   ``cluster_strong_min``, ``match_rel_cut``) (``features_phase``, the
+   collinearity and RDD calls profiled), each held to the main path's
+   bounds (``SAME_*``) against ``tests/data/torch_colmap_26_jax_reference.npz``
+   and ``torch_features_jax_reference.npz`` (written by
+   ``tests/make_torch_colmap_reference.py`` and
+   ``make_torch_features_reference.py`` with the JAX package on the CPU).
 4. Images to lines: renders the 10 views of the synthetic facade at
    3072 x 2304 (``utils/synthetic``), checks them against the digests of
    ``tests/data/torch_scene2_3072_jax_reference.npz`` (written by
@@ -47,7 +58,14 @@
    ``reconstruct_3d_lines`` -> ``save_*`` with the counters reset and read
    around it; requires every kernel to have launched and the ground-truth
    metrics within ``GT_SPREAD`` of JAX's, K6 with the map once per round
-   and no K5.  Then the same images under
+   and no K5.  Then the command line on the same views
+   (``cli_phase``): the images written as binary PGM and their poses and
+   worldpoints along the GT lines as an NVM, through
+   ``line3dpp_tpu_torch.cli.run.main(["vsfm", ...])`` on the card twice on
+   one output folder; the first run must detect the images -> lines
+   phase's segments bit for bit and give the lines of an in-process
+   ``Line3D`` fed them with the same worldpoints, the second must load the
+   segment cache, detect nothing and write the same TXT.  Then the same images under
    ``Config(lsd_rescue=True)`` (rescue cascade with K10, bundling on)
    against ``tests/data/torch_scene2_3072_rescue_jax_reference.npz``, with
    the number of rescued rectangles of every view (``RESCUE_*``) and every
@@ -55,7 +73,8 @@
    then view 0 with the ``rect_improve`` knob alone, the one path of K10's
    4-band form, with the counters reset and read around it
    (``detect_rect_improve``).
-5. Prints one ``{"undistort": ...}`` line, one ``{"facade_rounds": ...}``
+5. Prints one ``{"undistort": ...}`` line, one ``{"item11_13": ...}`` line
+   (the CLI's, the COLMAP phase's and the item-13 phases' times), one ``{"facade_rounds": ...}``
    line (K6 with the map and K9's
    consume form on facade view 0's rounds, beside K5 + K6 and K9 with the
    torch tail they replace), one ``{"full_size": ...}`` line (the detection
@@ -101,6 +120,17 @@ RESCUE_NPZ = os.path.join(REPO, "tests", "data",
                           "torch_scene2_3072_rescue_jax_reference.npz")
 BUNDLING_NPZ = os.path.join(REPO, "tests", "data",
                             "torch_bundling_26_jax_reference.npz")
+COLMAP_NPZ = os.path.join(REPO, "tests", "data",
+                          "torch_colmap_26_jax_reference.npz")
+FEATURES_NPZ = os.path.join(REPO, "tests", "data",
+                            "torch_features_jax_reference.npz")
+# lines against a JAX reference from the same segments (the main path's
+# bounds): the count within 1% (at least one line), count_f1 at 1% scene
+# scale
+SAME_COUNT_REL = 0.01
+SAME_F1 = 0.99
+# facade worldpoints written into the CLI phase's NVM: points per GT line
+NVM_POINTS_PER_LINE = 6
 
 # H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor cores, HBM3
 PEAK_F32 = 67e12            # operations / s
@@ -1567,8 +1597,303 @@ def images_to_lines(images, cams, gt, ref, dev, rescue: bool = False):
     for k in got:
         check(got[k] >= want[k] - GT_SPREAD, f"{k} {got[k]:.4f} is more "
               f"than {GT_SPREAD} below the JAX package's {want[k]:.4f}")
-    return launches, dict(phases, detect_s=detect_s)
+    return launches, dict(phases, detect_s=detect_s), pipe
 
+
+def quaternion(R) -> np.ndarray:
+    """(w, x, y, z) of a rotation matrix near the identity (trace form)."""
+    w = np.sqrt(max(1.0 + R[0, 0] + R[1, 1] + R[2, 2], 0.0)) / 2
+    return np.array([w, (R[2, 1] - R[1, 2]) / (4 * w),
+                     (R[0, 2] - R[2, 0]) / (4 * w),
+                     (R[1, 0] - R[0, 1]) / (4 * w)])
+
+
+def facade_worldpoints(cams, gt) -> tuple[list, list]:
+    """Points along the facade's GT lines and, per view, the ids of those
+    it sees (in front of it and inside the image): ``(points, tracks)``
+    with ``tracks[i]`` a list of ``(point id, u, v)``."""
+    ts = np.linspace(0.1, 0.9, NVM_POINTS_PER_LINE)
+    pts = np.concatenate([g[:3] + ts[:, None] * (g[3:] - g[:3]) for g in gt])
+    tracks = []
+    for cam in cams:
+        z = (pts @ cam.R.T + cam.t)[:, 2]
+        uv = cam.project(pts)
+        ok = ((z > 0) & (uv[:, 0] >= 0) & (uv[:, 0] < cam.width)
+              & (uv[:, 1] >= 0) & (uv[:, 1] < cam.height))
+        tracks.append([(j, *uv[j]) for j in np.flatnonzero(ok)])
+    return pts, tracks
+
+
+def write_nvm(path, names, cams, pts, tracks) -> None:
+    """An NVM_V3 file of the posed views (fx = fy, principal point at the
+    centre, no distortion; quaternion and centre as ``repr`` floats) and
+    their worldpoints."""
+    rows = ["NVM_V3", "", str(len(cams))]
+    for name, cam in zip(names, cams):
+        q = quaternion(cam.R)
+        rows.append(" ".join([name, repr(float(cam.K[0, 0]))]
+                             + [repr(float(x)) for x in (*q, *cam.C)]
+                             + ["0", "0"]))
+    obs: list[list] = [[] for _ in pts]
+    for i, tr in enumerate(tracks):
+        for j, u, v in tr:
+            obs[j].append(f"{i} {j} {float(u)!r} {float(v)!r}")
+    rows += ["", str(len(pts))]
+    rows += [" ".join(repr(float(x)) for x in X) + f" 255 255 255 {len(o)} "
+             + " ".join(o) for X, o in zip(pts, obs)]
+    with open(path, "w") as f:
+        f.write("\n".join(rows) + "\n")
+
+
+def cli_phase(images, cams, gt, ref, seg_views, geo_lines, dev) -> dict:
+    """The command line at full width: the facade views as binary PGM and
+    their poses (and worldpoints along the GT lines) as an NVM, through
+    ``line3dpp_tpu_torch.cli.run.main(["vsfm", ...])`` on the card, twice
+    on one output folder.  The first run must detect exactly the
+    segments of the images -> lines phase (``seg_views``) and give the
+    lines of an in-process ``Line3D`` fed those segments with the same
+    worldpoints; the second must load the segment cache the first wrote,
+    detect nothing and write the same TXT.  Returns the phases."""
+    import torch
+    import line3dpp_tpu_torch as lt
+    from line3dpp_tpu_torch.cli.run import main as cli_main
+    from line3dpp_tpu_torch.ops import kernels
+    from line3dpp_tpu_torch.utils import golden
+    from line3dpp_tpu_torch.utils.images import write_pgm
+
+    N = int(ref["neighbors"])
+    cfg = lt.Config(optimize=False, num_neighbors=N)
+    pts, tracks = facade_worldpoints(cams, gt)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        names = [f"view{i:02d}.pgm" for i in range(len(images))]
+        for name, im in zip(names, images):
+            write_pgm(os.path.join(tmp, name), im)
+        nvm = os.path.join(tmp, "result.nvm")
+        write_nvm(nvm, names, cams, pts, tracks)
+        out["write_inputs_s"] = time.perf_counter() - t0
+        argv = ["vsfm", "-i", tmp, "-m", nvm, "-o",
+                os.path.join(tmp, "out"), "--no-optimize", "-n", str(N)]
+        runs, launches, txts = [], [], []
+        for _ in range(2):
+            kernels.reset_launches()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            run = cli_main(argv)
+            phases = dict(run.phases, wall_s=time.perf_counter() - t0,
+                          peak_device_GiB=torch.cuda.max_memory_allocated()
+                          / 2**30)
+            launches.append(dict(kernels.LAUNCHES))
+            with open(run.base + ".txt", "rb") as f:
+                txts.append(f.read())
+            runs.append(run)
+            print("CLI run: " + json.dumps(phases), flush=True)
+            print("CLI launches: " + json.dumps(launches[-1]), flush=True)
+            out[f"run{len(runs)}"] = phases
+    first, second = runs
+    check(first.pipe.config == cfg, "the CLI built another Config")
+    check(first.pipe.device.type == "cuda", "the CLI did not run on the card")
+    check(all(n > 0 for k, n in launches[0].items()
+              if k not in OFF_PATH and k not in RESCUE_ONLY),
+          "the CLI's first run did not launch every kernel of its path")
+    check(len(first.pipe.detect_stats) == len(images),
+          "the CLI's first run did not detect every view")
+    check(all(np.array_equal(first.pipe._views[i].segments, seg_views[i])
+              for i in range(len(images))),
+          "the CLI's detections differ from the images -> lines phase's")
+    check(all(len(e.worldpoints) > 0 for e in first.pipe._views.values()),
+          "a view of the CLI carries no worldpoints")
+    check(second.pipe.detect_stats == []
+          and launches[1]["cc_tiles"] == 0,
+          "the CLI's second run detected instead of loading its cache")
+    check(txts[1] == txts[0], "the CLI's second run wrote another TXT")
+
+    # the same segments and worldpoints in process, with the original
+    # poses: the CLI differs only by the NVM's pose round trip
+    twin = lt.Line3D(cfg)
+    for i, cam in enumerate(cams):
+        twin.add_view(i, cam, seg_views[i], [t[0] for t in tracks[i]])
+    twin.match_images()
+    want = [l.segments3d for l in twin.reconstruct_3d_lines()]
+    got = [l.segments3d for l in first.pipe.lines3d]
+    n_rows = len(txts[0].decode().strip().splitlines())
+    check(n_rows == len(got), "the CLI's TXT rows != its line count")
+    tol = 0.01 * golden.scene_scale(gt)
+    f1 = golden.line_match_metrics(got, want, tol)["count_f1"]
+    gt_lines = [gt[i:i + 1] for i in range(len(gt))]
+
+    def gt_metrics(pred):
+        sm = golden.segment_set_metrics(np.concatenate(pred), gt, tol)
+        return dict(count_f1=golden.line_match_metrics(pred, gt_lines,
+                                                       tol)["count_f1"],
+                    recall=sm["recall"], precision=sm["precision"])
+
+    got_gt, geo_gt = gt_metrics(got), gt_metrics(geo_lines)
+    print(f"CLI: {len(got)} lines, the in-process twin {len(want)} "
+          f"(count_f1 {f1:.4f}); {sum(len(t) for t in tracks)} "
+          f"observations of {len(pts)} worldpoints; against the "
+          f"{len(gt)} GT lines {json.dumps(got_gt)}, the images -> lines "
+          f"phase (geometric neighbours) {json.dumps(geo_gt)}", flush=True)
+    check(abs(len(got) - len(want)) <= max(1, SAME_COUNT_REL * len(want))
+          and f1 >= SAME_F1,
+          "the CLI's lines differ from the in-process pipeline's")
+    for k in got_gt:
+        check(got_gt[k] >= geo_gt[k] - GT_SPREAD,
+              f"the CLI's {k} {got_gt[k]:.4f} is more than {GT_SPREAD} "
+              f"below the images -> lines phase's {geo_gt[k]:.4f}")
+    out.update(lines=len(got), count_f1_twin=f1, gt=got_gt)
+    return out
+
+
+def held_lines(pred, ref_lines, what: str) -> float:
+    """Lines against a JAX reference from the same segments: the count
+    within ``SAME_COUNT_REL`` (at least one line) and count_f1 >=
+    ``SAME_F1`` at 1% of the reference's scene scale; returns count_f1."""
+    from line3dpp_tpu_torch.utils import golden
+
+    tol = 0.01 * golden.scene_scale(np.concatenate(ref_lines))
+    f1 = golden.line_match_metrics(pred, ref_lines, tol)["count_f1"]
+    print(f"{what}: {len(pred)} lines (JAX {len(ref_lines)}), count_f1 "
+          f"{f1:.5f}", flush=True)
+    check(abs(len(pred) - len(ref_lines))
+          <= max(1, SAME_COUNT_REL * len(ref_lines)) and f1 >= SAME_F1,
+          f"{what}: the lines differ from the JAX reference's")
+    check(all(np.isfinite(p).all() for p in pred), f"{what}: non-finite")
+    return f1
+
+
+def split_lines(data, prefix: str = "") -> list:
+    return np.split(data[prefix + "lines"],
+                    np.cumsum(data[prefix + "line_counts"])[:-1])
+
+
+def timed_pipeline(pipe) -> dict:
+    """match_images and reconstruct_3d_lines of ``pipe`` with the launch
+    counters reset before and read after, and their wall times."""
+    import torch
+    from line3dpp_tpu_torch.ops import kernels
+
+    kernels.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    pipe.match_images()
+    torch.cuda.synchronize()
+    phases = {"match_images_s": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    pipe.reconstruct_3d_lines()
+    torch.cuda.synchronize()
+    phases["reconstruct_3d_lines_s"] = time.perf_counter() - t0
+    phases["peak_device_GiB"] = torch.cuda.max_memory_allocated() / 2**30
+    for name in ("match_pairs", "score_matches", "gather_target_estimates"):
+        check(kernels.LAUNCHES[name] > 0, f"kernel {name} was not launched")
+    return phases
+
+
+def colmap_phase(dev) -> dict:
+    """The worldpoint-overlap neighbours end to end: the COLMAP model of
+    the 26 views (``read_colmap``) and their cached segments through
+    ``add_view(worldpoints=...)``, ``Config(optimize=False)``, against
+    ``tests/data/torch_colmap_26_jax_reference.npz``."""
+    import line3dpp_tpu_torch as lt
+    from line3dpp_tpu_torch.utils.testdata import load_colmap_views
+
+    if not os.path.exists(COLMAP_NPZ):
+        fail(f"missing {COLMAP_NPZ} (tests/make_torch_colmap_reference.py)")
+    with np.load(COLMAP_NPZ) as data:
+        ref = {k: data[k] for k in data.files}
+    t0 = time.perf_counter()
+    views = load_colmap_views()
+    read_s = time.perf_counter() - t0
+    pipe = lt.Line3D(lt.Config(optimize=False))
+    for cam_id, v, segs in views:
+        pipe.add_view(cam_id, lt.Camera(v.K, v.R, v.t, v.width, v.height,
+                                        median_depth=v.median_depth),
+                      segs, worldpoints=v.worldpoints)
+    check(len(pipe._views) == 26
+          and all(e.worldpoints for e in pipe._views.values()),
+          "a COLMAP view carries no worldpoints: the geometric fallback "
+          "would run")
+    phases = dict(read_colmap_and_cache_s=read_s, **timed_pipeline(pipe))
+    nbr = pipe._last_state["neighbor_ids"]
+    check(np.array_equal(nbr, ref["neighbor_ids"]),
+          "the worldpoint neighbours differ from JAX's")
+    phases["count_f1"] = held_lines(
+        [l.segments3d for l in pipe.lines3d], split_lines(ref),
+        "COLMAP worldpoint neighbours, 26 views")
+    print("COLMAP worldpoints: " + json.dumps(phases), flush=True)
+    return phases
+
+
+def features_phase(dev) -> dict:
+    """Item 13 against ``tests/data/torch_features_jax_reference.npz``:
+    each configuration there (the reference's options ``perform_rdd`` and
+    ``collinearity_t``; the repository's compensations) on the 26 cached
+    views; the collinearity and RDD calls of the first are then profiled
+    again on the inputs the pipeline gave them."""
+    import torch
+    import line3dpp_tpu_torch as lt
+    from line3dpp_tpu_torch.ops import collinearity, rdd
+    from line3dpp_tpu_torch.utils.testdata import load_views
+
+    if not os.path.exists(FEATURES_NPZ):
+        fail(f"missing {FEATURES_NPZ} "
+             f"(tests/make_torch_features_reference.py)")
+    calls = {}
+
+    def capture(mod, name):
+        orig = getattr(mod, name)
+
+        def wrapped(*args, **kw):
+            calls[name] = (orig, args, kw)
+            return orig(*args, **kw)
+        setattr(mod, name, wrapped)
+        return mod, name, orig
+
+    origs = [capture(collinearity, "collinear_edges"),
+             capture(rdd, "rdd_edges")]
+    out = {}
+    try:
+        with np.load(FEATURES_NPZ) as data:
+            ref = {k: data[k] for k in data.files}
+        for name in ("reference", "compensations"):
+            ids = [int(i) for i in ref[f"{name}_views"]]
+            kw = json.loads(str(ref[f"{name}_config"]))
+            pipe = lt.Line3D(lt.Config(**kw))
+            for v in load_views(ids):
+                pipe.add_view(v.cam_id, lt.Camera(v.K, v.R, v.t, v.width,
+                                                  v.height), v.segments)
+            calls.clear()
+            phases = timed_pipeline(pipe)
+            phases["count_f1"] = held_lines(
+                [l.segments3d for l in pipe.lines3d],
+                split_lines(ref, name + "_"),
+                f"item 13, {name} options {kw}, {len(ids)} views")
+            want = {"collinear_edges", "rdd_edges"} if kw.get(
+                "perform_rdd") else set()
+            check(set(calls) == want, f"item 13, {name}: the pipeline "
+                  f"called {sorted(calls)}, not {sorted(want)}")
+            for fname, (fn, args, fkw) in calls.items():
+                _, events, wall = device_events(lambda: fn(*args, **fkw))
+                busy, n_dev = device_busy_us(events)
+                phases[fname] = dict(wall_ms=1e3 * wall,
+                                     device_ms=busy / 1e3,
+                                     device_events=n_dev)
+            if "rdd_edges" in calls:
+                args = calls["rdd_edges"][1]
+                phases["rdd_graph"] = dict(nodes=int(args[3]),
+                                           edges=int(len(args[0])))
+                e = calls["collinear_edges"][1]
+                phases["collinear_edges"]["edges"] = int(len(
+                    calls["collinear_edges"][0](*e)[0]))
+            out[name] = phases
+            print(f"item 13, {name}: " + json.dumps(phases), flush=True)
+            del pipe
+            torch.cuda.empty_cache()
+    finally:
+        for mod, name, orig in origs:
+            setattr(mod, name, orig)
+    return out
 
 def lm_reference(dev):
     """The bundling reference file: the Levenberg-Marquardt problem the JAX
@@ -1892,6 +2217,9 @@ def main() -> None:
     bundled_cached(views, dev, opts)
     torch.cuda.empty_cache()
 
+    # ---- the worldpoint neighbours (COLMAP model) and item 13's options
+    item11_13 = {"colmap": colmap_phase(dev), "features": features_phase(dev)}
+
     # ---- images -> lines on the full-size facade
     if not os.path.exists(SCENE2_NPZ):
         fail(f"missing {SCENE2_NPZ} (tests/make_torch_lsd_reference.py)")
@@ -1920,9 +2248,16 @@ def main() -> None:
             *synthetic_stripes(STRIPE_ACTIVE, 0, dev), dev,
             f"stripes of {STRIPE_ROWS} rows, {STRIPE_ACTIVE} active")]
     torch.cuda.synchronize()
-    default_launches, phases = images_to_lines(images, cams, gt, ref, dev)
+    default_launches, phases, i2l = images_to_lines(images, cams, gt, ref,
+                                                    dev)
     phases["render_s"] = render_s
     print("images -> lines phases: " + json.dumps(phases), flush=True)
+
+    # ---- the command line on the same views, as PGM files and an NVM
+    item11_13["cli"] = cli_phase(
+        images, cams, gt, ref, {i: e.segments for i, e in i2l._views.items()},
+        [l.segments3d for l in i2l.lines3d], dev)
+    del i2l
 
     # ---- the same images under Config(lsd_rescue=True), bundling on: the
     # path whose launches the kernels line reports
@@ -1935,8 +2270,8 @@ def main() -> None:
     check(list(ref["digests"]) == [synthetic.image_digest(im)
                                    for im in images[:n_ref]],
           "the rescue reference was made from other images")
-    launches, phases = images_to_lines(images[:n_ref], cams[:n_ref], gt, ref,
-                                       dev, rescue=True)
+    launches, phases, _ = images_to_lines(images[:n_ref], cams[:n_ref], gt,
+                                          ref, dev, rescue=True)
     print("images -> lines with the rescue cascade, phases: "
           + json.dumps(phases), flush=True)
     rect_launches = detect_rect_improve(images[0], dev)
@@ -1961,6 +2296,7 @@ def main() -> None:
     print(json.dumps({"undistort": undistorted}), flush=True)
     print(json.dumps({"facade_rounds": facade_rounds}), flush=True)
     print(json.dumps({"full_size": full}), flush=True)
+    print(json.dumps({"item11_13": item11_13}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi_line, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,20 +1,24 @@
 """line3dpp_tpu_torch — the line-based Multi-View Stereo engine in PyTorch.
 
-The PyTorch/CUDA port of ``line3dpp_tpu``: the same configuration, cameras
-and pipeline (LSD line-segment detection, epipolar line matching, 3D
-hypothesis scoring, affinity clustering, TXT/STL/OBJ output), with
-hand-written CUDA kernels for an NVIDIA Hopper GPU in place of the JAX
-package's Pallas kernels.  It imports neither JAX nor ``line3dpp_tpu``.
+The PyTorch/CUDA port of ``line3dpp_tpu``: the same configuration, cameras,
+SfM readers (``io``), command line (``python -m
+line3dpp_tpu_torch.cli.run``) and pipeline (LSD line-segment detection,
+epipolar line matching, 3D hypothesis scoring, affinity clustering, line
+bundling, TXT/STL/OBJ/BIN output), with hand-written CUDA kernels for an
+NVIDIA Hopper GPU in place of the JAX package's Pallas kernels.  It imports
+neither JAX nor ``line3dpp_tpu``.
 
-It runs the default reconstruction from images (``Line3D.add_image``,
+It runs the reconstruction from images (``Line3D.add_image``,
 ``add_images``, or ``detect`` alone) or from precomputed 2D segments
 (``Line3D.add_view``), reads and writes the reference's ``.bin`` formats
 (``Line3D.save_bin``, ``load_bin``, ``load_reference_bin``) and undistorts
-images (``undistort_image``); the options not ported yet raise
-``NotImplementedError``.
+images (``undistort_image``); the blocked large-scene options
+(``view_block``, ``knn <= 0``) raise ``NotImplementedError``.
 """
 
-from .camera import Camera
+from . import io
+from .camera import (Camera, decompose_projection_matrix, fundamental_matrix,
+                     rotation_from_quaternion, rotation_from_rpy)
 from .config import Config
 from .models.pipeline import Line3D
 from .ops.lsd import detect
@@ -22,5 +26,16 @@ from .ops.undistort import undistort_image
 from .utils.ref_bin import load_reference_bin
 from .utils.writers import FinalLine3D, load_bin
 
+
+def detect_line_segments(image, max_width: int = -1, device=None):
+    """Standalone 2D line-segment detection (reference:
+    Line3D::detectLineSegments, line3D.cc:249-372); :func:`detect` with
+    its defaults, on the CUDA device unless ``device`` names another."""
+    return detect(image, max_width=max_width, device=device)
+
+
 __all__ = ["Config", "Camera", "Line3D", "FinalLine3D", "detect",
-           "load_bin", "load_reference_bin", "undistort_image"]
+           "detect_line_segments", "load_bin", "load_reference_bin",
+           "rotation_from_rpy", "rotation_from_quaternion",
+           "decompose_projection_matrix", "fundamental_matrix",
+           "undistort_image", "io"]

@@ -1,6 +1,4 @@
-"""Camera model and pose math (a copy of ``line3dpp_tpu.camera``; the
-quaternion and projection-matrix helpers of the SfM readers come with
-ROADMAP item 11).
+"""Camera model and pose math (a copy of ``line3dpp_tpu.camera``).
 
 Host-side camera bookkeeping runs in float64 numpy (matching the reference's
 Eigen doubles, reference: view.cc:22-42); the batched device-side struct is
@@ -97,6 +95,51 @@ def rotation_from_rpy(roll: float, pitch: float, yaw: float) -> np.ndarray:
     Ry = np.array([[cp, 0, sp], [0, 1, 0], [-sp, 0, cp]])
     Rz = np.array([[cy, -sy, 0], [sy, cy, 0], [0, 0, 1]])
     return Rz @ Ry @ Rx
+
+
+def rotation_from_quaternion(q: Sequence[float]) -> np.ndarray:
+    """Rotation from quaternion (w,x,y,z), normalized internally
+    (reference: line3D.cc:2730-2754)."""
+    w, x, y, z = np.asarray(q, dtype=np.float64)
+    n = np.sqrt(w * w + x * x + y * y + z * z)
+    if n < 1e-15:
+        return np.eye(3)
+    w, x, y, z = w / n, x / n, y / n, z / n
+    return np.array(
+        [
+            [1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)],
+            [2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)],
+            [2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)],
+        ]
+    )
+
+
+def decompose_projection_matrix(P: np.ndarray) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Decompose a 3x4 projection matrix into K (upper triangular, positive
+    diagonal), R (rotation), t, such that P ~ K [R|t]
+    (reference: line3D.cc:2784-2852, RQ decomposition)."""
+    P = np.asarray(P, dtype=np.float64).reshape(3, 4)
+    M = P[:, :3]
+
+    # RQ decomposition via flipped QR
+    flip = np.flipud(np.eye(3))
+    Q_, R_ = np.linalg.qr((flip @ M).T)
+    K = flip @ R_.T @ flip
+    R = flip @ Q_.T
+
+    # enforce positive diagonal of K
+    S = np.diag(np.sign(np.diag(K)))
+    K = K @ S
+    R = S @ R
+
+    # enforce det(R) = +1
+    if np.linalg.det(R) < 0:
+        K = -K
+        R = -R
+
+    t = np.linalg.solve(K, P[:, 3])
+    K = K / K[2, 2]
+    return K, R, t
 
 
 def fundamental_matrix(cam1: Camera, cam2: Camera) -> np.ndarray:

@@ -8,13 +8,18 @@ runs
 
 and writes the resulting 3D line model.  Phase 2 is one fused device step
 (``models/step.py``) on ``self.device``; phase 3 is host numpy, apart from
-the line bundling (``ops/bundling.py``), which runs on ``self.device``.
+the relative score cut, collinearity, RDD and line bundling, which run on
+``self.device``.
 
-The port covers the default ``Config()`` (line bundling included) from
-images (LSD detection, ``add_image``/``add_images``, with the
-``lsd_rescue`` and ``lsd_seed_gate`` options) or from precomputed segments
-(``add_view``).  Options it does not run raise ``NotImplementedError``
-naming the ROADMAP item that ports them.
+The port runs every ``Config`` option but the blocked large-scene ones,
+from images (LSD detection, ``add_image``/``add_images``) or from
+precomputed segments (``add_view``), with the optional stages of the
+reconstruction: the relative score cut (``match_rel_cut``), collinearity
+edges (``collinearity_t``, ``ops/collinearity.py``), replicator-dynamics
+diffusion (``perform_rdd``, ``ops/rdd.py``), anchored clustering
+(``cluster_strong_min``) and the bimodal split (``split_bimodal_t``,
+``split_strong_min``).  The blocked options (``view_block``, ``knn <= 0``)
+raise ``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -31,9 +36,11 @@ from ..config import Config
 from ..ops import affinity as affinity_ops
 from ..ops import bundling as bundling_ops
 from ..ops import clustering as clustering_ops
+from ..ops import collinearity as collin_ops
 from ..ops import fitting as fitting_ops
 from ..ops import geometry as geo
 from ..ops import lsd as lsd_ops
+from ..ops import rdd as rdd_ops
 from ..ops import sweep as sweep_ops
 from ..utils import segments_cache
 from ..utils import ref_bin
@@ -50,11 +57,6 @@ STEP_ARRAYS = ("segments", "seg_mask", "RtKinv", "C", "k_reg",
 def _check_supported(cfg: Config) -> None:
     """Raise for configuration options this slice of the port does not run."""
     todo = [
-        (cfg.perform_rdd, "perform_rdd=True", 13),
-        (cfg.collinearity_t > 0, "collinearity_t > 0", 13),
-        (cfg.split_bimodal_t > 0, "split_bimodal_t > 0", 13),
-        (cfg.cluster_strong_min > 0, "cluster_strong_min > 0", 13),
-        (cfg.match_rel_cut > 0, "match_rel_cut > 0", 13),
         (cfg.view_block > 0, "view_block > 0 (blocked matching)", 14),
         (cfg.knn <= 0, "knn <= 0 (keep all matches, blocked matching)", 14),
     ]
@@ -308,16 +310,41 @@ class Line3D:
         M = out.tgt_seg.shape[2]
         visibility = max(cfg.visibility_t, 3)
 
+        # optional per-segment relative score cut (Config.match_rel_cut): a
+        # kept match yields an affinity edge only when its score is at
+        # least rel * the segment's best kept score; on the device
+        aff = affinity_ops.AffinityDense(out.aff_weight, out.aff_valid)
+        if cfg.match_rel_cut > 0:
+            aff = affinity_ops.rel_cut(aff, out.score3d, out.kept,
+                                       cfg.match_rel_cut)
+
         # --- edge extraction: device-side compaction, then host dedup
         # (line3D.cc:1881-1899).  Only O(E) values cross to the host.
-        idx, ww, ts_e = affinity_ops.compact_edges(
-            affinity_ops.AffinityDense(out.aff_weight, out.aff_valid),
-            out.tgt_seg)
+        idx, ww, ts_e = affinity_ops.compact_edges(aff, out.tgt_seg)
         src_v = idx // (S * M)
         src_s = (idx // M) % S
         tv_e = st["neighbor_ids"][src_v, (idx % M) // st["knn"]]
         gid_a = src_v * S + src_s
         gid_b = tv_e.astype(np.int64) * S + ts_e
+
+        # optional collinearity edges: same-view collinear segment pairs
+        # with consistent 3D estimates (line3D.cc:1904-1974), compacted on
+        # the device a few views at a time
+        if cfg.collinearity_t > 0:
+            med = out.median_depth.cpu().numpy()
+            meds = np.sort(med[med > EPS])
+            med_scene = float(meds[len(meds) // 2]) if len(meds) else 0.0
+            dev = self.device
+            cv_, cs1, cs2, cw = collin_ops.collinear_edges(
+                torch.from_numpy(st["segs"]).to(dev),
+                torch.from_numpy(st["mask"]).to(dev),
+                out.est_P1, out.est_P2, out.est_d1, out.est_d2,
+                out.est_valid, torch.from_numpy(cb.k_reg).to(dev),
+                out.median_depth, med_scene, float(cfg.collinearity_t),
+                cfg.min_affinity)
+            gid_a = np.concatenate([gid_a, cv_ * S + cs1])
+            gid_b = np.concatenate([gid_b, cv_ * S + cs2])
+            ww = np.concatenate([ww, cw])
 
         lo = np.minimum(gid_a, gid_b)
         hi = np.maximum(gid_a, gid_b)
@@ -333,12 +360,26 @@ class Line3D:
         li = inv[: len(lo)].astype(np.int32)
         lj = inv[len(lo):].astype(np.int32)
 
+        # optional replicator-dynamics diffusion sharpens the affinities
+        # before clustering (performRDD line3D.cc:2026-2076)
+        if cfg.perform_rdd:
+            ww = rdd_ops.rdd_edges(li, lj, ww.astype(np.float32), len(nodes),
+                                   iterations=cfg.rdd_max_iter,
+                                   device=self.device)
+
         # both directions, as the reference pushes symmetric entries
         ei = np.concatenate([li, lj])
         ej = np.concatenate([lj, li])
         ew = np.concatenate([ww, ww]).astype(np.float32)
-        labels = clustering_ops.cluster_edges(ei, ej, ew, len(nodes),
-                                              cfg.felzenszwalb_c)
+        if cfg.cluster_strong_min > 0:
+            best = affinity_ops.best_kept_score(out.score3d, out.kept)
+            strong_node = best.cpu().numpy()[nodes // S, nodes % S] \
+                >= cfg.cluster_strong_min
+            labels = clustering_ops.cluster_edges_anchored(
+                ei, ej, ew, len(nodes), strong_node, cfg.felzenszwalb_c)
+        else:
+            labels = clustering_ops.cluster_edges(ei, ej, ew, len(nodes),
+                                                  cfg.felzenszwalb_c)
 
         # --- group nodes into clusters with >= visibility distinct cameras
         node_view = (nodes // S).astype(np.int32)
@@ -364,15 +405,28 @@ class Line3D:
         estP2 = out.est_P2.cpu().numpy()
         pts = np.concatenate([estP1[mv, ms], estP2[mv, ms]], axis=0)
         lines = fitting_ops.fit_lines_np(pts, np.concatenate([mc, mc]), C)
-        lineP1 = lines.P1
-        line_dir = lines.P2 - lines.P1
+        lineP1, lineP2 = lines.P1, lines.P2
+        line_dir = lineP2 - lineP1
         line_dir /= np.maximum(
             np.linalg.norm(line_dir, axis=-1, keepdims=True), EPS)
+
+        # --- optional split of clusters whose member hypotheses are
+        # bimodal across the fitted line (host, on the step's estimates)
+        if cfg.split_bimodal_t > 0:
+            m_score = None
+            if cfg.split_strong_min > 0:
+                m_score = affinity_ops.best_kept_score(
+                    out.score3d, out.kept).cpu().numpy()[mv, ms]
+            mc, C, lineP1, lineP2, line_dir = self._split_bimodal_clusters(
+                mc, mv, ms, C, lineP1, line_dir, estP1, estP2,
+                dict(cb=cb, median_depth=out.median_depth.cpu().numpy()),
+                visibility, cfg.split_bimodal_t, m_score=m_score,
+                strong_min=cfg.split_strong_min)
 
         # --- optional bundling of the cluster lines (optimization.cc)
         if cfg.optimize:
             lineP1, _, line_dir = bundling_ops.optimize_cluster_lines(
-                lineP1, lines.P2, mc, mv, ms, C, st, cfg, device=self.device)
+                lineP1, lineP2, mc, mv, ms, C, st, cfg, device=self.device)
 
         # --- project member segments onto their cluster lines
         r1 = st["r1"].cpu().numpy()
@@ -440,6 +494,151 @@ class Line3D:
                         res_all[order[bounds[c]: bounds[c + 1]]])
             for c in np.flatnonzero(emit)]
         return self.lines3d
+
+    # ------------------------------------------------------------------
+    def _split_bimodal_clusters(self, mc, mv, ms, C, lineP1, line_dir,
+                                estP1, estP2, st, visibility, gap_t,
+                                max_depth: int = 2, m_score=None,
+                                strong_min: float = 0.0):
+        """Split clusters whose members are bimodal in signed perpendicular
+        offset from the fitted 3D line (in sigma = k * depth units, the
+        affinity's pixel-equivalent scale).
+
+        Close parallel structure lines (median separation ~3.8 px on the
+        golden testdata) merge when triangulation noise smears the best
+        hypotheses toward each other; the merged cluster's members still
+        carry the side information in their perpendicular offsets.  A
+        cluster is split at the largest inter-member gap when that gap is
+        >= ``gap_t`` sigma and BOTH sides retain >= ``visibility`` distinct
+        cameras (a failed side would be dropped by the reference's
+        visibility filter anyway, so we keep the cluster whole instead).
+        No reference counterpart: this compensates estimate-noise relative
+        to the reference (tools/diag_smear_cases.py), not a new feature.
+
+        ``strong_min`` > 0 restricts the split DECISION (principal axis,
+        Otsu gates, visibility) to members whose best match score is at
+        least that value — score ~ number of confirming cameras, so 3.0
+        means 3-camera-confirmed estimates.  Merged bundles carry a fog of
+        1-2-camera members with large depth errors (tools/
+        diag_bridge_classes.py) that previously dominated the PCA axis and
+        masked the lateral core separation; strong members expose it.
+        Weak members are then assigned to the nearer mode.
+
+        Host numpy, as in the JAX package (``numpy.linalg.eigh`` on the
+        same float64 inputs: the principal axis's free sign only swaps
+        which side keeps the old cluster id).  ``st`` holds ``cb`` (the
+        CameraBatch) and ``median_depth`` (numpy).
+        """
+        k_reg = np.asarray(st["cb"].k_reg)
+        cam_C = np.asarray(st["cb"].C)
+        med_d = np.asarray(st["median_depth"])
+
+        pm = 0.5 * (estP1[mv, ms] + estP2[mv, ms])         # (m, 3) midpoints
+        depth = np.linalg.norm(pm - cam_C[mv], axis=1)
+        sigma = np.maximum(k_reg[mv] * np.minimum(depth, med_d[mv]), EPS)
+
+        order = np.argsort(mc, kind="stable")
+        bounds = np.searchsorted(mc[order], np.arange(C + 1))
+
+        new_mc = mc.copy()
+        lineP2 = lineP1 + 2.0 * line_dir       # fit convention: cog +- dir
+        next_id = C
+        stack = [(c, order[bounds[c]: bounds[c + 1]], 0) for c in range(C)]
+        while stack:
+            c, idx, depth_lvl = stack.pop()
+            if len(idx) < 4 or depth_lvl >= max_depth:
+                continue
+            if strong_min > 0 and m_score is not None:
+                strong = idx[m_score[idx] >= strong_min]
+                if len(strong) < 4:
+                        continue
+            else:
+                strong = idx
+            d = line_dir[c]
+            w = pm[strong] - lineP1[c]
+            perp = w - (w @ d)[:, None] * d[None, :]
+            # principal perpendicular axis of the (strong) offsets
+            cov = perp.T @ perp
+            _, vecs = np.linalg.eigh(cov)
+            u = vecs[:, -1]
+            w_all = pm[idx] - lineP1[c]
+            perp_all = w_all - (w_all @ d)[:, None] * d[None, :]
+            s_all = (perp_all @ u) / sigma[idx]
+            s = (perp @ u) / sigma[strong]
+            o2 = np.argsort(s)
+            ss = s[o2]
+            n = len(ss)
+            # Otsu-style 2-means: split maximizing between-class variance;
+            # accept when the mode-mean separation >= gap_t sigma (a
+            # unimodal Gaussian yields ~1.6 std < gap_t, so pure noise
+            # does not split)
+            csum = np.cumsum(ss)
+            csq = np.cumsum(ss * ss)
+            kk = np.arange(1, n)
+            mean_lo = csum[:-1] / kk
+            mean_hi = (csum[-1] - csum[:-1]) / (n - kk)
+            delta = mean_hi - mean_lo
+            bcv = kk * (n - kk) * delta * delta
+            g = int(np.argmax(bcv))
+            split_t = 0.5 * (mean_lo[g] + mean_hi[g])
+            if strong_min > 0 and m_score is not None:
+                # assign ALL members (incl. weak) by the strong-mode midpoint
+                lo_all = idx[s_all <= split_t]
+                hi_all = idx[s_all > split_t]
+            else:
+                # legacy mode (no strong gating): rank split at the Otsu cut
+                # so every member lands on its own side — the midpoint can
+                # fall outside (ss[g], ss[g+1]) for asymmetric modes and
+                # would silently reassign members vs the round-2 tuning
+                lo_all = strong[o2[: g + 1]]
+                hi_all = strong[o2[g + 1:]]
+            if delta[g] < gap_t:
+                continue
+            # Ashman's D: the modes must also be separated relative to
+            # their within-mode spread (D >= 2 ~ clean bimodality); a
+            # smeared unimodal cluster can reach delta ~1.6 std but its
+            # within-mode variance stays high, failing this gate
+            # cancellation can drive the variances a hair negative for
+            # near-identical offsets; clamp so D stays finite (NaN would
+            # silently pass the gate)
+            var_lo = max(csq[g] / (g + 1) - mean_lo[g] ** 2, 0.0)
+            var_hi = max((csq[-1] - csq[g]) / (n - g - 1)
+                         - mean_hi[g] ** 2, 0.0)
+            D = delta[g] / max(np.sqrt(0.5 * (var_lo + var_hi)), EPS)
+            if D < 2.0:
+                continue
+            lo, hi = lo_all, hi_all
+            # visibility gate on STRONG members per side when gating is on:
+            # a mode is only real if >= visibility cameras confirm it well
+            vis_lo = strong[s <= split_t] if strong_min > 0 else lo
+            vis_hi = strong[s > split_t] if strong_min > 0 else hi
+            if (len(np.unique(mv[vis_lo])) < visibility
+                    or len(np.unique(mv[vis_hi])) < visibility
+                    or not len(lo) or not len(hi)):
+                continue
+            # split: high side becomes a new cluster; refit both
+            new_mc[hi] = next_id
+            for part in (lo, hi):
+                pts_p = np.concatenate([estP1[mv[part], ms[part]],
+                                        estP2[mv[part], ms[part]]], axis=0)
+                lf = fitting_ops.fit_lines_np(
+                    pts_p, np.zeros(len(pts_p), np.int32), 1)
+                P1p, P2p = np.asarray(lf.P1)[0], np.asarray(lf.P2)[0]
+                dp = P2p - P1p
+                dp /= max(np.linalg.norm(dp), EPS)
+                cid = c if part is lo else next_id
+                if cid == next_id:
+                    lineP1 = np.concatenate([lineP1, P1p[None]], axis=0)
+                    lineP2 = np.concatenate([lineP2, P2p[None]], axis=0)
+                    line_dir = np.concatenate([line_dir, dp[None]], axis=0)
+                else:
+                    lineP1[cid] = P1p
+                    lineP2[cid] = P2p
+                    line_dir[cid] = dp
+                stack.append((cid, part, depth_lvl + 1))
+            next_id += 1
+
+        return new_mc, next_id, lineP1, lineP2, line_dir
 
     # ------------------------------------------------------------------
     def _visual_neighbors(self, cam_ids, cams, N) -> dict[int, list[int]]:

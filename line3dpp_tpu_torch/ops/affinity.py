@@ -240,3 +240,22 @@ def compact_edges(aff: AffinityDense, tgt_seg: torch.Tensor):
     idx = torch.nonzero(aff.edge_valid.reshape(-1)).reshape(-1)
     return (idx.cpu().numpy(), aff.weight.reshape(-1)[idx].cpu().numpy(),
             tgt_seg.reshape(-1)[idx].cpu().numpy().astype(np.int64))
+
+
+def best_kept_score(score3d: torch.Tensor, kept: torch.Tensor) -> torch.Tensor:
+    """(V, S) each segment's best kept match score, 0 where it keeps none."""
+    return torch.where(kept, score3d, torch.zeros_like(score3d)).amax(-1)
+
+
+def rel_cut(aff: AffinityDense, score3d: torch.Tensor, kept: torch.Tensor,
+            rel: float) -> AffinityDense:
+    """``Config.match_rel_cut``: an affinity edge survives only where its
+    match scores at least ``rel`` times its segment's best kept score; the
+    weight of a dropped edge is zeroed (the JAX package's
+    ``_rel_cut_mask``)."""
+    best = best_kept_score(score3d, kept)[..., None]
+    rel32 = torch.tensor(rel, dtype=torch.float32, device=score3d.device)
+    mask = aff.edge_valid & (score3d >= rel32 * best)
+    return AffinityDense(weight=torch.where(mask, aff.weight,
+                                            torch.zeros_like(aff.weight)),
+                         edge_valid=mask)

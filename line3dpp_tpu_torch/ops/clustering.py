@@ -9,6 +9,8 @@ which ``threshold[root] = w + c / size``.
 The stage is sequential and small, so it runs on the host: the C++ union-find
 in ``native/l3dnative.cc`` is built with g++ into ``build/native/`` of the
 checkout at first use; where it cannot be built, the python loop runs.
+:func:`cluster_edges_anchored` (``Config.cluster_strong_min``) is the JAX
+package's two-pass host loop, copied.
 """
 
 from __future__ import annotations
@@ -112,5 +114,81 @@ def cluster_python(i, j, w, num_nodes: int, c: float) -> np.ndarray:
                     rank[b] += 1
                 root = b
             threshold[root] = ww + c / size[root]
+
+    return np.array([find(x) for x in range(num_nodes)], dtype=np.int32)
+
+
+def cluster_edges_anchored(
+    i: np.ndarray, j: np.ndarray, w: np.ndarray, num_nodes: int,
+    strong: np.ndarray, c: float = 3.0,
+) -> np.ndarray:
+    """Two-tier bridge-resistant clustering (no reference counterpart).
+
+    Pass 1 clusters the subgraph induced by ``strong`` nodes with the
+    standard adaptive-threshold rule; pass 2 replays ALL edges with one
+    extra constraint: a merge is rejected when it would join components
+    anchored to two DIFFERENT strong clusters.  Weak (1-2-camera) nodes can
+    therefore join a well-supported structure but never glue two of them
+    together — which is exactly how close parallel line bundles merge
+    through estimate-noise fog (tools/diag_bridge_classes.py: of 3836
+    bridge edges inside merged clusters only 31 connect two confidently
+    sided strong nodes).
+
+    NOTE pass 2 does NOT guarantee pass-1 strong clusters survive intact:
+    weak members interleaved into pass 2 inflate component sizes, lowering
+    the adaptive threshold ``w + c/size``, so a strong-strong merge accepted
+    in pass 1 can be rejected in pass 2.  The pass-2 strong components are a
+    REFINEMENT of the pass-1 partition (never coarser — the anchor gate
+    blocks cross-anchor merges — but possibly finer); the anchor gate never
+    fires between fragments of the same pass-1 cluster.  Covered by
+    tests/test_clustering.py::test_anchored_pass2_may_refine_pass1.
+
+    ``strong``: bool (num_nodes,).  Returns root label per node.
+    """
+    i = np.ascontiguousarray(i, dtype=np.int32)
+    j = np.ascontiguousarray(j, dtype=np.int32)
+    w = np.ascontiguousarray(w, dtype=np.float32)
+
+    ss = strong[i] & strong[j]
+    lab1 = cluster_edges(i[ss], j[ss], w[ss], num_nodes, c)
+    # anchor = strong-cluster id for strong nodes, -1 for weak ones
+    anchor = np.where(strong, lab1.astype(np.int64), -1)
+
+    order = np.argsort(w, kind="stable")
+    i, j, w = i[order], j[order], w[order]
+
+    parent = np.arange(num_nodes, dtype=np.int64)
+    rank = np.zeros(num_nodes, dtype=np.int32)
+    size = np.ones(num_nodes, dtype=np.int64)
+    threshold = np.full(num_nodes, c, dtype=np.float64)
+
+    def find(x: int) -> int:
+        root = x
+        while parent[root] != root:
+            root = parent[root]
+        parent[x] = root
+        return root
+
+    for ii, jj, ww in zip(i.tolist(), j.tolist(), w.tolist()):
+        a = find(ii)
+        b = find(jj)
+        if a == b:
+            continue
+        if anchor[a] >= 0 and anchor[b] >= 0 and anchor[a] != anchor[b]:
+            continue                      # would bridge two strong clusters
+        if ww <= threshold[a] and ww <= threshold[b]:
+            anc = max(anchor[a], anchor[b])
+            if rank[a] > rank[b]:
+                parent[b] = a
+                size[a] += size[b]
+                root = a
+            else:
+                parent[a] = b
+                size[b] += size[a]
+                if rank[a] == rank[b]:
+                    rank[b] += 1
+                root = b
+            threshold[root] = ww + c / size[root]
+            anchor[root] = anc
 
     return np.array([find(x) for x in range(num_nodes)], dtype=np.int32)

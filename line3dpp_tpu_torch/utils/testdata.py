@@ -52,3 +52,26 @@ def load_views(cam_ids=None, testdata_dir: str = TESTDATA_DIR,
             R=np.array(c["R"], np.float64), t=np.array(c["t"], np.float64),
             width=int(c["width"]), height=int(c["height"]), segments=segs))
     return views
+
+
+def load_colmap_views(testdata_dir: str = TESTDATA_DIR,
+                      max_segments: int = 3000) -> list[tuple]:
+    """The COLMAP text model ``testdata/colmap_model/`` (the 26 views with
+    their worldpoints) read with :func:`line3dpp_tpu_torch.io.read_colmap`,
+    each with its cached segments: ``(cam_id, view, segments)`` in model
+    order.  COLMAP image ids are 1-based; ``cam_id`` is the id minus one,
+    the cache's 0-based id (the photos are not in the repository, so the
+    segments come from the cache, as a detection would read them)."""
+    from ..io import read_colmap
+
+    cache_dir = os.path.join(testdata_dir, "L3D_cache")
+    out = []
+    for v in read_colmap(os.path.join(testdata_dir, "colmap_model"),
+                         testdata_dir):
+        segs = segments_cache.load(cache_dir, v.cam_id - 1,
+                                   (v.height, v.width), max_segments)
+        if segs is None:
+            raise FileNotFoundError(
+                f"no cached segments for view {v.cam_id - 1} in {cache_dir}")
+        out.append((v.cam_id - 1, v, segs))
+    return out

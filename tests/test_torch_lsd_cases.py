@@ -175,9 +175,8 @@ def test_band_counts_and_lsd_options_raise():
     with pytest.raises(ValueError, match="bands"):
         lsd_fit.band_counts(z.int(), z, z, z, torch.zeros((1, 8)), 1,
                             bands=((1.0, 2.0),))
-    with pytest.raises(NotImplementedError, match="item 13"):
-        lt.Line3D(lt.Config(lsd_rescue=True, collinearity_t=2.0),
-                  device="cpu")
+    with pytest.raises(NotImplementedError, match="item 14"):
+        lt.Line3D(lt.Config(lsd_rescue=True, view_block=4), device="cpu")
     img = lines_image()
     cam = lt.Camera(np.diag([200.0, 200.0, 1.0]), np.eye(3), np.zeros(3),
                     200, 160)
