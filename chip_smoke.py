@@ -35,6 +35,23 @@
    and ``torch_features_jax_reference.npz`` (written by
    ``tests/make_torch_colmap_reference.py`` and
    ``make_torch_features_reference.py`` with the JAX package on the CPU).
+   Then K1's and K2's general forms (``general_kernel_checks``): K1 at
+   k = 20 on the 416 pairs and at k = S = 3000 on views 0-2's 48 pairs
+   (one all-matches block) against the plain matcher bit for bit, the
+   insertion form at k = 10 against the first 10 slots at k = S; K2's
+   general form against the plain scorer at knn = ``K2_WIDE_KNN`` (M =
+   1600, views 0-2) and against the first form on the M = 160 tables, bit
+   for bit, and timed on the all-matches block (M = 48,000) with its
+   records and pre-test survivors counted for its bound
+   (``sparse_pretest_counts``).  Then items 14 and 15 through the entry
+   points (``item14_15_phase``): the 26 views at ``view_block`` 4 and 13
+   (the fused TXT byte for byte, K1 and K2 once a block, no K3), the JAX
+   package's 104-view scene (``build_scale_scene``, a copy of
+   ``tools/bench_scale.py``'s) fused and at ``view_block=26`` (the same
+   TXT), all matches (``knn=0``: auto-blocked at 3 with the JAX package's
+   printed line, K1's and K2's general forms once a block), ``knn=20``
+   fused, and the view-sharded step over NCCL at world size 1 against
+   ``forward_step`` bit for bit (``sharded_world1``).
 4. Images to lines: renders the 10 views of the synthetic facade at
    3072 x 2304 (``utils/synthetic``), checks them against the digests of
    ``tests/data/torch_scene2_3072_jax_reference.npz`` (written by
@@ -74,13 +91,16 @@
    4-band form, with the counters reset and read around it
    (``detect_rect_improve``).
 5. Prints one ``{"undistort": ...}`` line, one ``{"item11_13": ...}`` line
-   (the CLI's, the COLMAP phase's and the item-13 phases' times), one ``{"facade_rounds": ...}``
+   (the CLI's, the COLMAP phase's and the item-13 phases' times), one
+   ``{"item14_15": ...}`` line (the blocked, 104-view, all-matches, knn=20
+   and sharded phases), one ``{"facade_rounds": ...}``
    line (K6 with the map and K9's
    consume form on facade view 0's rounds, beside K5 + K6 and K9 with the
    torch tail they replace), one ``{"full_size": ...}`` line (the detection
    kernels on the synthetic grids), one ``{"kernels": [...]}`` line
    (``launches``: the rescue path's run; ``launches_default``: the
-   ``Config(optimize=False)`` run, which launches no K10; neither
+   ``Config(optimize=False)`` run, which launches no K10; K1's and
+   K2's general forms: the all-matches run's; neither
    launches K9's gate_pixels form or K10's 4-band form;
    ``launches_rect_improve``: the rect_improve detection), the nvidia-smi
    line, and last
@@ -148,6 +168,8 @@ K9_OPS_PER_PIXEL = 50       # cosf, sinf (~20 each), projection, 3 tests
 K10_OPS_PER_PIXEL = 8       # 2 differences, projection, s (lsd_fit.cu) ...
 K10_OPS_PER_BAND = 6        # ... and per band 2 thresholds, 2 comparisons
 K11_OPS_PER_PIXEL = 14      # 2 differences, 2 projections, 4 minima
+# K2's general form against its plain version at this knn (M = 16 x 100)
+K2_WIDE_KNN = 100
 
 # Facade bounds against the JAX reference.  The detections move with the
 # order of the float32 moment sums, which JAX (one-hot products) and the
@@ -199,6 +221,9 @@ FULL_SIZE_KEYS = ("name", "max_abs_err", "ms", "device_ms", "plain_ms",
 OFF_PATH = ("apply_merge_dense", "gather_labels", "gate_pixels",
             "band_counts")
 RESCUE_ONLY = ("rescue_counts",)
+# the general forms of K1 (k > 16) and K2 (M > 1024): the images paths run
+# k = 10, M <= 1024; all matches (knn <= 0) and knn = 20 run them
+GENERAL_FORMS = ("match_pairs_all", "score_matches_all")
 # the long-edge grid: bands of this many rows of one angle, 47% active
 STRIPE_ROWS = 8
 STRIPE_ACTIVE = 0.47
@@ -352,6 +377,16 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def k2_bytes(args, got, valid_slots: int) -> int:
+    """Bytes that kernel K2 must move: the validity table, the rays and the
+    cameras read, the two depths of each valid slot read (those of an
+    invalid slot are never read), score3d and valid written."""
+    r1, r2, rmid, C, k_reg, tgt_C, tgt_k, d_p1, d_p2, valid = args
+    return (nbytes(valid, r1, r2, rmid, C, k_reg, tgt_C, tgt_k)
+            + (d_p1.element_size() + d_p2.element_size()) * valid_slots
+            + nbytes(got.score3d, got.valid))
+
+
 def check_k1(t, eo, knn):
     """K1 against its plain version; both read the same tables."""
     import torch
@@ -494,7 +529,7 @@ def check_k2(args, kw, sass=None, clock_mhz=None):
     pairs, survivors = n["pairs"], n["survivors"]
     print("K2 pre-test: " + json.dumps(n), flush=True)
     ops = K2_PRETEST_OPS_PER_PAIR * pairs + K2_OPS_PER_PAIR * survivors
-    moved = nbytes(*args) + nbytes(got.score3d, got.valid)
+    moved = k2_bytes(args, got, int(args[9].sum()))
     k2 = lambda: scoring.score_matches_cuda(*args, **kw)
     ms = cuda_ms(k2, reps=5)
     plain_ms = cuda_ms(
@@ -1570,7 +1605,7 @@ def images_to_lines(images, cams, gt, ref, dev, rescue: bool = False):
         # K5 and K6's gather_labels form are not on the detection path
         # (held against their plain versions above); K10 and K9's
         # gate_pixels form run in the rescue cascade only
-        check(n > 0 or name in OFF_PATH
+        check(n > 0 or name in OFF_PATH or name in GENERAL_FORMS
               or (name in RESCUE_ONLY and not rescue),
               f"kernel {name} was not launched on the images -> lines path")
     check(all(launches[name] == 0 for name in OFF_PATH),
@@ -1695,7 +1730,7 @@ def cli_phase(images, cams, gt, ref, seg_views, geo_lines, dev) -> dict:
     check(first.pipe.config == cfg, "the CLI built another Config")
     check(first.pipe.device.type == "cuda", "the CLI did not run on the card")
     check(all(n > 0 for k, n in launches[0].items()
-              if k not in OFF_PATH and k not in RESCUE_ONLY),
+              if k not in OFF_PATH + RESCUE_ONLY + GENERAL_FORMS),
           "the CLI's first run did not launch every kernel of its path")
     check(len(first.pipe.detect_stats) == len(images),
           "the CLI's first run did not detect every view")
@@ -2063,6 +2098,460 @@ def check_undistort(image, K, dev) -> dict:
     return row
 
 
+def pair_subset(t, lo: int, hi: int):
+    """The pair tables ``t`` restricted to pairs [lo, hi) (the view tables
+    whole)."""
+    cut = lambda x: x[lo:hi].contiguous()
+    return t._replace(e1=cut(t.e1), e2=cut(t.e2), num_src=cut(t.num_src),
+                      num_tgt=cut(t.num_tgt), src_idx=cut(t.src_idx),
+                      tgt_idx=cut(t.tgt_idx), pair_valid=cut(t.pair_valid))
+
+
+def same_matches(got, want, what: str) -> None:
+    """Two K1 outputs equal in every field, bit for bit."""
+    import torch
+
+    bad = [f for f in got._fields
+           if not torch.equal(getattr(got, f), getattr(want, f))]
+    print(f"{what}: {int(want.valid.sum())} valid slots; fields that differ: "
+          f"{bad}", flush=True)
+    check(not bad, f"{what}: differs in {bad}")
+
+
+def k1_candidates(t) -> int:
+    n_src = (t.mask[t.src_idx.long()] & t.pair_valid[:, None]).sum(1)
+    n_tgt = t.mask[t.tgt_idx.long()].sum(1)
+    return int((n_src * n_tgt).sum())
+
+
+def block_k2_args(inp, d, pm, lo: int, hi: int):
+    """Kernel K2's arguments for source views [lo, hi) from K1's table
+    ``pm`` of their pairs, the target cameras from the whole scene's
+    tables (``_match_score_filter``'s)."""
+    from line3dpp_tpu_torch.models import step
+
+    nbr = d["neighbor_ids"][lo:hi]
+    Vb, N = nbr.shape
+    rays = step.hypothesis_rays(d["segments"][lo:hi], d["RtKinv"][lo:hi])
+    n = nbr.long()
+    return (*(r.contiguous() for r in rays), d["C"][lo:hi].contiguous(),
+            d["k_reg"][lo:hi].contiguous(), d["C"][n].contiguous(),
+            d["k_reg"][n].contiguous(),
+            *(step.regroup(x, Vb, N).contiguous()
+              for x in (pm.d_p1, pm.d_p2, pm.valid)))
+
+
+def sparse_pretest_counts(args, kw, chunk: int = 32) -> dict:
+    """Kernel K2's work on a table too wide for :func:`pretest_counts`'
+    (chunk, M, M) planes: per segment, its valid slots after the gate
+    (the kernel's records) and, over their pairs of different groups,
+    those the pre-test keeps (the survivors), counted in torch one segment
+    at a time."""
+    import torch
+    from line3dpp_tpu_torch.ops import scoring
+
+    r1, r2, rmid, C, k_reg, tgt_C, tgt_k, d_p1, d_p2, valid = args
+    V, S, M = d_p1.shape
+    knn = kw["knn"]
+    flat = lambda x: x.reshape(V * S, *x.shape[2:])
+    view_of = torch.arange(V, device=d_p1.device).repeat_interleave(S)
+    fr = [flat(a) for a in (r1, r2, rmid, d_p1, d_p2, valid)]
+    n = dict(segments=V * S, valid_slots=0, gated_slots=0, pairs=0,
+             survivors=0, max_gated_slots=0)
+    per_seg = []
+    for lo in range(0, V * S, chunk):
+        sl = slice(lo, min(lo + chunk, V * S))
+        vv = view_of[sl]
+        a1, a2, am, d1, d2, mv = (a[sl] for a in fr)
+        n["valid_slots"] += int(mv.sum())
+        dirc, ok, den1, den2 = scoring._slot_geometry(
+            a1, a2, am, d1, d2, mv, C[vv], k_reg[vv], tgt_C[vv], tgt_k[vv],
+            knn=knn, check_orientation=kw["check_orientation"])
+        for b in range(ok.shape[0]):
+            idx = torch.nonzero(ok[b]).reshape(-1)
+            m = int(idx.numel())
+            per_seg.append(m)
+            if m < 2:
+                continue
+            g = idx // knn
+            dv = [c[b, idx] for c in dirc]
+            e1 = d1[b, idx][:, None] - d1[b, idx][None, :]
+            e2 = d2[b, idx][:, None] - d2[b, idx][None, :]
+            dot = (dv[0][:, None] * dv[0][None, :] + dv[1][:, None]
+                   * dv[1][None, :] + dv[2][:, None] * dv[2][None, :])
+            other = g[:, None] != g[None, :]
+            keep = other & scoring.pretest_keeps_plain(
+                dot, e1, e2, den1[b, idx], den2[b, idx], kw["two_sig_a_sqr"],
+                kw["min_similarity"])
+            n["pairs"] += int(other.sum())
+            n["survivors"] += int(keep.sum())
+    per_seg = np.array(per_seg)
+    n["gated_slots"] = int(per_seg.sum())
+    n["max_gated_slots"] = int(per_seg.max())
+    n["mean_gated_slots"] = float(per_seg.mean())
+    n["median_gated_slots"] = float(np.median(per_seg))
+    n["segments_with_slots"] = int((per_seg > 0).sum())
+    return n
+
+
+def general_kernel_checks(inp, cfg, dev) -> tuple[list, dict]:
+    """K1's and K2's general forms on the 26 views: K1 at k = 20 (416
+    pairs) and at k = S (the 48 pairs of views 0-2, one all-matches block)
+    against the plain matcher, and its k = S prefix against the insertion
+    form at k = 10; K2's general form against the plain scorer at knn = 100
+    (M = 1600, views 0-2) and against the first form on the main path's
+    M = 160 tables; K2's time on the all-matches block (M = 48,000) with
+    the counts behind its bound."""
+    import torch
+    from line3dpp_tpu_torch.ops import matching, scoring
+
+    d = {n: torch.from_numpy(inp[n]).to(dev) for n in (
+        "segments", "seg_mask", "RtKinv", "C", "k_reg", "neighbor_ids", "F",
+        "pair_valid")}
+    V, N = d["neighbor_ids"].shape
+    S = d["seg_mask"].shape[1]
+    eo = cfg.epipolar_overlap
+    src = torch.arange(V, dtype=torch.int32, device=dev).repeat_interleave(N)
+    t = matching.pair_tables(d["segments"], d["seg_mask"], d["RtKinv"],
+                             d["C"], src, d["neighbor_ids"].reshape(-1),
+                             d["F"].reshape(-1, 3, 3),
+                             d["pair_valid"].reshape(-1))
+    info = {}
+    # K1 at k = 20 over every pair (F3)
+    k20 = matching.match_pairs_cuda(t, eo, 20)
+    same_matches(k20, matching.match_pairs_plain(t, eo, 20, chunk=8),
+                 f"K1 general form, k = 20, {V * N} pairs, against plain")
+    info["k1_k20_ms"] = cuda_ms(lambda: matching.match_pairs_cuda(t, eo, 20),
+                                reps=3)
+    info["k1_k20_device_ms"] = device_ms(
+        lambda: matching.match_pairs_cuda(t, eo, 20), 3)
+    del k20
+    # K1 at k = S over one block's pairs
+    tb = pair_subset(t, 0, 3 * N)
+    every = matching.match_pairs_cuda(tb, eo, S)
+    torch.cuda.synchronize()
+    want = matching.match_pairs_plain(tb, eo, S, chunk=2)
+    same_matches(every, want, f"K1 general form, k = S = {S}, views 0-2 "
+                 f"({3 * N} pairs), against plain")
+    del want
+    top = matching.match_pairs_cuda(tb, eo, 10)
+    same_matches(top, type(every)(*(x[..., :10] for x in every)),
+                 "K1 prefix: the insertion form at k = 10 against the first "
+                 "10 slots of the general form at k = S")
+    del top
+    counts = every.valid.sum(-1)
+    info["k1_kS_valid_per_row"] = dict(
+        mean=float(counts.float().mean()), max=int(counts.max()),
+        over_1024=int((counts > 1024).sum()))
+    k1 = lambda: matching.match_pairs_cuda(tb, eo, S)
+    torch.cuda.synchronize()
+    ops = K1_OPS_PER_CANDIDATE * k1_candidates(tb)
+    moved = nbytes(tb.segments, tb.mask, tb.r1, tb.r2, tb.n, tb.seglen,
+                   tb.e1, tb.e2, tb.num_src, tb.num_tgt, tb.src_idx,
+                   tb.tgt_idx, tb.pair_valid) + nbytes(*every[:6])
+    plain_ms = cuda_ms(lambda: matching.match_pairs_plain(tb, eo, S, 2),
+                       reps=1, warmup=0)
+    b_ms, by = bound(ops, moved)
+    row1 = dict(name="K1 match_pairs_all", route="cuda",
+                source="line3dpp_tpu_torch/csrc/matching.cu",
+                replaces="line3dpp_tpu/ops/matching_pallas.py:233",
+                max_abs_err=0.0, ms=cuda_ms(k1, reps=3),
+                device_ms=device_ms(k1, 3), plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=by, library_ms=None,
+                shape=f"k = S = {S}, {3 * N} pairs", **info)
+
+    # K2's general form: the all-matches block, from K1's k = S table
+    args = block_k2_args(inp, d, every, 0, 3)
+    del every
+    kw = dict(knn=S, two_sig_a_sqr=cfg.two_sig_a_sqr,
+              min_similarity=cfg.min_similarity_3d,
+              check_orientation=cfg.check_match_orientation)
+    got = scoring.score_matches_cuda(*args, **kw)
+    every_pair = scoring.score_matches_cuda(*args, pretest=False, **kw)
+    check(torch.equal(got.score3d, every_pair.score3d)
+          and torch.equal(got.valid, every_pair.valid),
+          "K2's general form: its pre-test changes a bit")
+    del every_pair
+    n = sparse_pretest_counts(args, kw)
+    print("K2 general form, all-matches block (views 0-2, M = "
+          f"{args[7].shape[2]}): " + json.dumps(n), flush=True)
+    k2 = lambda: scoring.score_matches_cuda(*args, **kw)
+    ops = K2_PRETEST_OPS_PER_PAIR * n["pairs"] + K2_OPS_PER_PAIR * n[
+        "survivors"]
+    moved = k2_bytes(args, got, n["valid_slots"])
+    b_ms, by = bound(ops, moved)
+    k2_ms, k2_dev = cuda_ms(k2, reps=3), device_sum_ms(k2, calls=3)
+    del got, args
+    torch.cuda.empty_cache()
+
+    # against the plain scorer at knn = 100 (M = 1600), views 0-2
+    pm = matching.match_pairs_cuda(t, eo, K2_WIDE_KNN)
+    args = block_k2_args(inp, d, pm, 0, V)
+    del pm
+    kw100 = dict(kw, knn=K2_WIDE_KNN)
+    got = scoring.score_matches_cuda(*args, **kw100)
+    sub = tuple(a[:3] for a in args)
+    want = scoring.score_matches_plain(*sub, **kw100)
+    err = float((got.score3d[:3] - want.score3d).abs().max())
+    same = (torch.equal(got.score3d[:3], want.score3d)
+            and torch.equal(got.valid[:3], want.valid))
+    print(f"K2 general form, knn = {K2_WIDE_KNN} (M = {N * K2_WIDE_KNN}), "
+          f"views 0-2 against plain: "
+          f"{int(want.valid.sum())} valid slots, bit-equal {same}, max |err| "
+          f"{err:.3g}", flush=True)
+    check(same, "K2's general form differs from its plain version")
+    plain_ms = cuda_ms(lambda: scoring.score_matches_plain(*sub, **kw100),
+                       reps=1, warmup=0)
+    del got, want, sub, args
+    # against the first form on the main path's M = 160 tables
+    pm = matching.match_pairs_cuda(t, eo, inp["knn"])
+    args = block_k2_args(inp, d, pm, 0, V)
+    kw10 = dict(kw, knn=inp["knn"])
+    a = scoring.score_matches_cuda(*args, **kw10)
+    b = scoring.score_matches_cuda(*args, general=True, **kw10)
+    same = torch.equal(a.score3d, b.score3d) and torch.equal(a.valid, b.valid)
+    print(f"K2 general form against the first form, M = {N * inp['knn']}: "
+          f"bit-equal {same}", flush=True)
+    check(same, "K2's two forms differ on the main path's tables")
+    # both forms on those tables, in turns: CUDA events around the wrapper
+    # (the general form's read of its record count included) and the
+    # card's kernels, copies and memsets summed
+    forms = dict(first=lambda: scoring.score_matches_cuda(*args, **kw10),
+                 general=lambda: scoring.score_matches_cuda(
+                     *args, general=True, **kw10))
+    turns = {name: [] for name in forms}
+    for name in ("first", "general", "general", "first"):
+        turns[name].append((cuda_ms(forms[name], reps=10),
+                            device_sum_ms(forms[name], calls=10)))
+    m160 = {f"{name}_{unit}": float(np.mean([t[i] for t in turns[name]]))
+            for name in forms for i, unit in enumerate(("ms", "device_ms"))}
+    print(f"K2 forms at M = {N * inp['knn']}, in turns (first, general, "
+          f"general, first): " + json.dumps(m160), flush=True)
+    row2 = dict(name="K2 score_matches_all", route="cuda",
+                source="line3dpp_tpu_torch/csrc/scoring.cu",
+                replaces="line3dpp_tpu/ops/scoring_pallas.py:231",
+                max_abs_err=err, ms=k2_ms, device_ms=k2_dev,
+                plain_ms=plain_ms,
+                plain_shape=f"knn = {K2_WIDE_KNN}, views 0-2",
+                bound_ms=b_ms, bound_by=by, library_ms=None,
+                shape=f"M = {N * S}, views 0-2", work=n,
+                forms_at_m160=m160)
+    del a, b, args, pm, t, tb
+    torch.cuda.empty_cache()
+    return [row1, row2], n
+
+
+def txt_bytes(pipe) -> bytes:
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "lines.txt")
+        pipe.save_txt(path)
+        with open(path, "rb") as f:
+            return f.read()
+
+
+def run_views(cfg, views, capture: bool = False) -> tuple:
+    """``views`` ((cam_id, Camera, segments)) through Line3D under ``cfg``
+    with the launch counters reset before and read after: the pipeline,
+    its phases, its launches and what match_images printed."""
+    import contextlib
+    import io as _io
+    import torch
+    import line3dpp_tpu_torch as lt
+    from line3dpp_tpu_torch.ops import kernels
+
+    pipe = lt.Line3D(cfg)
+    for cam_id, cam, segs in views:
+        pipe.add_view(cam_id, cam, segs)
+    kernels.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    printed = _io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed) if capture else \
+            contextlib.nullcontext():
+        pipe.match_images()
+        torch.cuda.synchronize()
+    phases = {"match_images_s": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    lines = pipe.reconstruct_3d_lines()
+    phases["reconstruct_3d_lines_s"] = time.perf_counter() - t0
+    phases["peak_device_GiB"] = torch.cuda.max_memory_allocated() / 2**30
+    phases["lines"] = len(lines)
+    check(all(np.isfinite(l.segments3d).all() for l in lines),
+          "non-finite 3D segments")
+    return pipe, phases, dict(kernels.LAUNCHES), printed.getvalue()
+
+
+def build_scale_scene(V: int, S: int = 3000, seed: int = 0) -> list:
+    """The JAX package's large synthetic scene (``tools/bench_scale.py``'s
+    ``build_scene``, copied): 1500 random 3D segments seen by V cameras of
+    3072 x 2304 on a line, each view filled up to S segments with random
+    2D clutter.  Returns (cam_id, Camera, segments)."""
+    import line3dpp_tpu_torch as lt
+
+    rng = np.random.default_rng(seed)
+    n_lines = 1500
+    P = rng.uniform([-6, -4, 8], [6, 4, 18], size=(n_lines, 3))
+    d = rng.normal(size=(n_lines, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    Q = P + d * rng.uniform(0.5, 2.0, size=(n_lines, 1))
+    K = np.array([[2400.0, 0, 1536], [0, 2400.0, 1152], [0, 0, 1]])
+    views = []
+    for i in range(V):
+        R = lt.rotation_from_rpy(rng.normal() * 0.02, -0.005 * i + 0.2,
+                                 rng.normal() * 0.02)
+        C = np.array([0.12 * i - 0.06 * V, rng.normal() * 0.1,
+                      rng.normal() * 0.1])
+        cam = lt.Camera(K, R, -R @ C, 3072, 2304)
+        sv = np.hstack([cam.project(P), cam.project(Q)])
+        inside = ((sv[:, [0, 2]] > 0) & (sv[:, [0, 2]] < 3072)).all(1) & (
+            (sv[:, [1, 3]] > 0) & (sv[:, [1, 3]] < 2304)).all(1)
+        sv = sv[inside]
+        n_fill = max(0, S - len(sv))
+        a = rng.uniform([0, 0], [3072, 2304], size=(n_fill, 2))
+        ang = rng.uniform(0, 2 * np.pi, n_fill)
+        ln = rng.uniform(20, 300, n_fill)
+        b = a + np.stack([np.cos(ang), np.sin(ang)], -1) * ln[:, None]
+        views.append((i, cam, np.vstack([sv, np.hstack([a, b])])[:S]))
+    return views
+
+
+def sharded_world1(inp, cfg, dev) -> dict:
+    """The view-sharded step over NCCL at world size 1 (the one card) on
+    the 26 views, against ``forward_step``, bit for bit."""
+    import socket
+    import torch
+    import torch.distributed as dist
+    from line3dpp_tpu_torch.models import step
+    from line3dpp_tpu_torch.models.pipeline import STEP_ARRAYS
+    from line3dpp_tpu_torch.parallel import sharded
+
+    kw = dict(epipolar_overlap=cfg.epipolar_overlap, knn=inp["knn"],
+              two_sig_a_sqr=cfg.two_sig_a_sqr,
+              min_similarity=cfg.min_similarity_3d,
+              check_orientation=cfg.check_match_orientation,
+              min_best_score=cfg.min_best_score_3d,
+              min_best_score_perc=cfg.min_best_score_perc,
+              min_affinity=cfg.min_affinity, pair_chunk=max(cfg.pair_chunk, 1))
+    args = [torch.from_numpy(inp[n]).to(dev) for n in STEP_ARRAYS]
+    want = step.forward_step(*args, **kw)
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    sharded.init_group(0, 1, f"127.0.0.1:{port}")
+    try:
+        fn = sharded.sharded_forward_step(**kw)
+        t0 = time.perf_counter()
+        got = fn(*sharded.shard_inputs(0, 1, *args))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        dist.destroy_process_group()
+    bad = [f for f in want._fields
+           if not torch.equal(getattr(got, f), getattr(want, f))]
+    print(f"sharded step, NCCL, world size 1, 26 views: fields that differ "
+          f"from forward_step: {bad}; {wall:.3f} s", flush=True)
+    check(not bad, f"the sharded step differs from forward_step in {bad}")
+    return dict(wall_s=wall, est=int(got.est_valid.sum()),
+                edges=int(got.aff_valid.sum()))
+
+
+def item14_15_phase(views, cfg, dev, fused_txt: bytes) -> dict:
+    """Items 14 and 15 end to end on the card: the 26 views blocked at
+    ``view_block`` 4 and 13 (the fused TXT byte for byte, K1 and K2 once a
+    block, no K3); the JAX package's 104-view scene fused and at
+    ``view_block=26`` (the same TXT); all matches (``knn=0``), which
+    auto-blocks at 3 and prints the JAX package's line; ``knn=20`` fused
+    (F3); the sharded step over NCCL at world size 1."""
+    import dataclasses
+    import torch
+    import line3dpp_tpu_torch as lt
+
+    out = {}
+    cams = [(v.cam_id, lt.Camera(v.K, v.R, v.t, v.width, v.height),
+             v.segments) for v in views]
+    for vb, blocks in ((4, 7), (13, 2)):
+        pipe, phases, launches, _ = run_views(
+            dataclasses.replace(cfg, view_block=vb), cams)
+        same = txt_bytes(pipe) == fused_txt
+        phases.update(txt_equal_to_fused=same, launches={
+            k: launches[k] for k in ("match_pairs", "score_matches",
+                                     "gather_target_estimates")})
+        print(f"blocked, view_block={vb}, 26 views: " + json.dumps(phases),
+              flush=True)
+        check(same, f"view_block={vb}: the TXT differs from the fused run's")
+        check(launches["match_pairs"] == blocks
+              and launches["score_matches"] == blocks
+              and launches["gather_target_estimates"] == 0,
+              f"view_block={vb}: K1/K2 not once per block, or K3 launched")
+        out[f"blocked_{vb}"] = phases
+        del pipe
+    torch.cuda.empty_cache()
+
+    # the JAX package's large scene (tools/bench_scale.py), fused and blocked
+    t0 = time.perf_counter()
+    scale = build_scale_scene(104)
+    build_s = time.perf_counter() - t0
+    txts = {}
+    for vb in (0, 26):
+        pipe, phases, launches, _ = run_views(
+            dataclasses.replace(cfg, view_block=vb), scale)
+        txts[vb] = txt_bytes(pipe)
+        phases["neighbours"] = int(pipe._last_state["neighbor_ids"].shape[1])
+        phases["launches"] = {k: launches[k] for k in (
+            "match_pairs", "score_matches", "gather_target_estimates")}
+        out[f"scale104_vb{vb}"] = phases
+        print(f"104-view scene (S = 3000), view_block={vb}: "
+              + json.dumps(phases), flush=True)
+        del pipe
+        torch.cuda.empty_cache()
+    out["scale104_build_s"] = build_s
+    check(out["scale104_vb0"]["lines"] > 0, "104 views: no lines")
+    check(txts[0] == txts[26], "104 views: blocked and fused TXT differ")
+
+    # all matches: auto-blocked at 2^31 // (3000 * 16 * 3000 * 4) = 3
+    pipe, phases, launches, printed = run_views(
+        dataclasses.replace(cfg, knn=0), cams, capture=True)
+    line = printed.strip()
+    V, S = len(cams), cfg.num_segments
+    N = pipe._last_state["neighbor_ids"].shape[1]
+    fused_bytes = V * S * N * S * 4
+    want = (f"[L3D-TPU] match tensors would be "
+            f"{fused_bytes / (1 << 30):.1f} GiB per array (knn=0); "
+            f"auto-blocking source views at view_block="
+            f"{(2 << 30) // (S * N * S * 4)}")
+    phases["printed"] = line
+    phases["launches"] = {k: launches[k] for k in (
+        "match_pairs", "match_pairs_all", "score_matches",
+        "score_matches_all", "gather_target_estimates")}
+    out["all_matches"] = phases
+    out["all_matches_launches"] = dict(launches)
+    print("all matches (knn=0), 26 views: " + json.dumps(phases), flush=True)
+    check(line == want and want.endswith("view_block=3"),
+          f"all matches: printed {line!r}, not {want!r}")
+    check(launches["match_pairs_all"] == 9
+          and launches["score_matches_all"] == 9
+          and launches["gather_target_estimates"] == 0,
+          "all matches: K1's and K2's general forms not once per block")
+    check(phases["lines"] > 0, "all matches: no lines")
+    del pipe
+    torch.cuda.empty_cache()
+
+    # F3: knn = 20 fused
+    pipe, phases, launches, _ = run_views(dataclasses.replace(cfg, knn=20),
+                                          cams)
+    phases["launches"] = {k: launches[k] for k in (
+        "match_pairs", "match_pairs_all", "score_matches",
+        "score_matches_all", "gather_target_estimates")}
+    out["knn20"] = phases
+    print("knn=20, 26 views, fused: " + json.dumps(phases), flush=True)
+    check(launches["match_pairs_all"] == 1 and launches["score_matches"] == 1,
+          "knn=20: not K1's general form and K2's first form (M = 320)")
+    del pipe
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", help="directory for the build log and profile")
@@ -2147,8 +2636,8 @@ def main() -> None:
     for v in views:
         setup.add_view(v.cam_id, lt.Camera(v.K, v.R, v.t, v.width, v.height),
                        v.segments)
-    rows = kernel_checks(setup.step_inputs(), cfg, dev, k1_sass, k2_sass,
-                         clock_mhz)
+    inp = setup.step_inputs()
+    rows = kernel_checks(inp, cfg, dev, k1_sass, k2_sass, clock_mhz)
     del setup
     torch.cuda.synchronize()
 
@@ -2176,8 +2665,9 @@ def main() -> None:
         pipe.save_stl(base + ".stl")
         pipe.save_obj(base + ".obj")
         phases["save_s"] = time.perf_counter() - t0
-        with open(base + ".txt") as f:
-            n_rows = sum(1 for _ in f)
+        with open(base + ".txt", "rb") as f:
+            fused_txt = f.read()
+        n_rows = fused_txt.count(b"\n")
         with open(base + ".stl") as f:
             n_facets = sum(1 for r in f if r.startswith(" endfacet"))
         phases["save_bin_s"] = check_bin_round_trip(pipe, base)
@@ -2211,6 +2701,15 @@ def main() -> None:
     if opts.profile:
         profile(pipe.match_images, "match_images", opts.out)
     del pipe
+    torch.cuda.empty_cache()
+
+    # ---- K1's and K2's general forms; the blocked path, all matches and
+    # knn = 20 through the entry points; the sharded step over NCCL
+    general_rows, _ = general_kernel_checks(inp, cfg, dev)
+    rows += general_rows
+    item14_15 = item14_15_phase(views, cfg, dev, fused_txt)
+    item14_15["sharded_nccl_world1"] = sharded_world1(inp, cfg, dev)
+    all_matches_launches = item14_15.pop("all_matches_launches")
     torch.cuda.empty_cache()
 
     # ---- the same views under the default Config(): bundling on
@@ -2293,10 +2792,14 @@ def main() -> None:
         r["launches"] = launches[key]
         r["launches_default"] = default_launches[key]
         r["launches_rect_improve"] = rect_launches[key]
+        if key in ("match_pairs_all", "score_matches_all"):
+            # the general forms' path: all matches on the 26 views
+            r["launches"] = all_matches_launches[key]
     print(json.dumps({"undistort": undistorted}), flush=True)
     print(json.dumps({"facade_rounds": facade_rounds}), flush=True)
     print(json.dumps({"full_size": full}), flush=True)
     print(json.dumps({"item11_13": item11_13}), flush=True)
+    print(json.dumps({"item14_15": item14_15}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi_line, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -12,8 +12,10 @@ It runs the reconstruction from images (``Line3D.add_image``,
 ``add_images``, or ``detect`` alone) or from precomputed 2D segments
 (``Line3D.add_view``), reads and writes the reference's ``.bin`` formats
 (``Line3D.save_bin``, ``load_bin``, ``load_reference_bin``) and undistorts
-images (``undistort_image``); the blocked large-scene options
-(``view_block``, ``knn <= 0``) raise ``NotImplementedError``.
+images (``undistort_image``).  Large scenes run phase 2 in blocks of
+source views (``Config.view_block``, or automatically, as with ``knn <=
+0``, which keeps every match); ``parallel`` shards the step's views over
+the processes of a ``torch.distributed`` group.
 """
 
 from . import io

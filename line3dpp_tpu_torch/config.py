@@ -1,9 +1,9 @@
 """Pipeline configuration (PyTorch port).
 
 A copy of ``line3dpp_tpu.config``: the same frozen dataclass, field names and
-defaults, so one configuration drives either package.
-``models.pipeline.Line3D`` raises ``NotImplementedError`` for the blocked
-large-scene options (``view_block``, ``knn <= 0``), which are not ported.
+defaults, so one configuration drives either package, every option
+included (``view_block`` and ``knn <= 0`` run the blocked large-scene
+path, ``models.pipeline.Line3D._match_images_blocked``).
 
 A single frozen dataclass holds every tunable of the line-based MVS
 engine.  Default values mirror the reference defaults (reference:

@@ -77,6 +77,58 @@ def score_inputs(segments, RtKinv, C, k_reg, neighbor_ids, pm) -> tuple:
               for x in (pm.d_p1, pm.d_p2, pm.valid)))
 
 
+def _match_score_filter(segments, seg_mask, RtKinv, C, k_reg, neighbor_ids,
+                        F, pair_valid, *, epipolar_overlap, knn,
+                        two_sig_a_sqr, min_similarity, check_orientation,
+                        min_best_score, min_best_score_perc, pair_chunk,
+                        src_rows=None) -> dict:
+    """Matching (K1) -> scoring (K2) -> filtering -> per-view medians for a
+    batch of source views.
+
+    ``segments``/``seg_mask`` and the camera tables ``RtKinv``, ``C`` and
+    ``k_reg`` cover ALL views; ``neighbor_ids``/``F``/``pair_valid`` cover
+    only the batch, whose global view indices are ``src_rows`` (every view
+    by default).  The targets may lie outside the batch: the blocked
+    large-scene path and the view-sharded step slice the view axis this
+    way, and only O(batch * S * M) memory is live."""
+    V_all = seg_mask.shape[0]
+    Vb, N = neighbor_ids.shape
+    dev = segments.device
+    if src_rows is None:
+        src_rows = torch.arange(V_all, dtype=torch.int32, device=dev)
+    src_rows = src_rows.to(device=dev, dtype=torch.int32)
+    src_idx = src_rows.repeat_interleave(N)
+    pm = matching_ops.match_pairs(
+        segments, seg_mask, RtKinv, C, src_idx, neighbor_ids.reshape(-1),
+        F.reshape(-1, 3, 3), pair_valid.reshape(-1), epipolar_overlap, knn,
+        chunk=pair_chunk)
+    t_seg = regroup(pm.tgt_seg, Vb, N)
+    t_valid = regroup(pm.valid, Vb, N)
+    d_p1 = regroup(pm.d_p1, Vb, N)
+    d_p2 = regroup(pm.d_p2, Vb, N)
+    del pm
+
+    rows = src_rows.long()
+    C_src, k_src = C[rows], k_reg[rows]
+    r1, r2, rmid = hypothesis_rays(segments[rows], RtKinv[rows])
+
+    scored = scoring_ops.score_matches(
+        r1, r2, rmid, C_src, k_src, neighbor_ids, d_p1, d_p2, t_valid,
+        knn=knn, two_sig_a_sqr=two_sig_a_sqr, min_similarity=min_similarity,
+        check_orientation=check_orientation, C_table=C, k_table=k_reg)
+
+    fm = affinity_ops.filter_matches(
+        r1, r2, C_src, scored.score3d, scored.valid, d_p1, d_p2,
+        min_best_score, min_best_score_perc)
+
+    both = torch.cat([fm.est_d1, fm.est_d2], dim=1)
+    bvalid = torch.cat([fm.est_valid, fm.est_valid], dim=1)
+    median_depth = _median_positive(both, bvalid)
+    return dict(t_seg=t_seg, t_valid=t_valid, d_p1=d_p1, d_p2=d_p2,
+                scored=scored, fm=fm, median_depth=median_depth, r1=r1,
+                r2=r2)
+
+
 def forward_step(
     segments: torch.Tensor,      # (V, S, 4) f32 2D segments (dense, masked)
     seg_mask: torch.Tensor,      # (V, S) bool
@@ -97,32 +149,14 @@ def forward_step(
     min_affinity: float = 0.5,
     pair_chunk: int = 8,
 ) -> StepOutputs:
-    V, N = neighbor_ids.shape
-    src_idx = torch.arange(V, dtype=torch.int32,
-                           device=segments.device).repeat_interleave(N)
-    pm = matching_ops.match_pairs(
-        segments, seg_mask, RtKinv, C, src_idx, neighbor_ids.reshape(-1),
-        F.reshape(-1, 3, 3), pair_valid.reshape(-1), epipolar_overlap, knn,
-        chunk=pair_chunk)
-    t_seg = regroup(pm.tgt_seg, V, N)
-    t_valid = regroup(pm.valid, V, N)
-    d_p1 = regroup(pm.d_p1, V, N)
-    d_p2 = regroup(pm.d_p2, V, N)
-
-    r1, r2, rmid = hypothesis_rays(segments, RtKinv)
-
-    scored = scoring_ops.score_matches(
-        r1, r2, rmid, C, k_reg, neighbor_ids, d_p1, d_p2, t_valid,
-        knn=knn, two_sig_a_sqr=two_sig_a_sqr, min_similarity=min_similarity,
-        check_orientation=check_orientation)
-
-    fm = affinity_ops.filter_matches(
-        r1, r2, C, scored.score3d, scored.valid, d_p1, d_p2,
-        min_best_score, min_best_score_perc)
-
-    both = torch.cat([fm.est_d1, fm.est_d2], dim=1)
-    bvalid = torch.cat([fm.est_valid, fm.est_valid], dim=1)
-    median_depth = _median_positive(both, bvalid)
+    msf = _match_score_filter(
+        segments, seg_mask, RtKinv, C, k_reg, neighbor_ids, F, pair_valid,
+        epipolar_overlap=epipolar_overlap, knn=knn,
+        two_sig_a_sqr=two_sig_a_sqr, min_similarity=min_similarity,
+        check_orientation=check_orientation, min_best_score=min_best_score,
+        min_best_score_perc=min_best_score_perc, pair_chunk=pair_chunk)
+    t_seg, fm = msf["t_seg"], msf["fm"]
+    median_depth = msf["median_depth"]
 
     # median scene depth over views for the affinity depth cutoff
     # (line3D.cc:1758-1774)
@@ -132,9 +166,16 @@ def forward_step(
         fm, t_seg, neighbor_ids, k_reg, median_depth, med_scene,
         two_sig_a_sqr, min_affinity)
 
+    return step_outputs(msf, aff)
+
+
+def step_outputs(msf: dict, aff) -> StepOutputs:
+    """The step's outputs from :func:`_match_score_filter`'s and the
+    affinity stage's."""
+    fm = msf["fm"]
     return StepOutputs(
-        tgt_seg=t_seg, match_valid=t_valid, score3d=scored.score3d,
-        kept=fm.kept, est_valid=fm.est_valid, est_P1=fm.est_P1,
-        est_P2=fm.est_P2, est_d1=fm.est_d1, est_d2=fm.est_d2,
-        aff_weight=aff.weight, aff_valid=aff.edge_valid,
-        median_depth=median_depth)
+        tgt_seg=msf["t_seg"], match_valid=msf["t_valid"],
+        score3d=msf["scored"].score3d, kept=fm.kept,
+        est_valid=fm.est_valid, est_P1=fm.est_P1, est_P2=fm.est_P2,
+        est_d1=fm.est_d1, est_d2=fm.est_d2, aff_weight=aff.weight,
+        aff_valid=aff.edge_valid, median_depth=msf["median_depth"])

@@ -15,7 +15,9 @@ The target estimates are gathered by :func:`gather_target_estimates`, which
 launches kernel K3 (``csrc/affinity_gather.cu``) for CUDA tensors and runs
 :func:`gather_target_estimates_plain` for CPU tensors.  The similarity math
 is plain torch over dense (V, S, M) tensors; :func:`compact_edges` extracts
-the edges in row-major order.
+the edges in row-major order.  The blocked large-scene path compacts each
+block's kept matches (:func:`compact_kept`) and evaluates the same
+similarity edge by edge (:func:`affinity_edges_flat`).
 """
 
 from __future__ import annotations
@@ -151,19 +153,29 @@ class AffinityDense(NamedTuple):
 
 def affinity_dense(fm: FilteredMatches, tgt_seg, neighbor_ids, k_reg,
                    median_depth, med_scene_depth_lines, two_sig_a_sqr: float,
-                   min_affinity: float = 0.5) -> AffinityDense:
+                   min_affinity: float = 0.5, tgt_est=None, k_table=None,
+                   median_depth_table=None) -> AffinityDense:
     """Similarity of each (segment-estimate, match-target-estimate) pair
     (reference: line3D.cc:1449-1553, called from 1873-1899).
 
     ``med_scene_depth_lines`` is a 0-dim tensor or a float; <= EPS disables
-    the scene-level depth cutoff."""
+    the scene-level depth cutoff.  Where the view axis is sharded, ``fm``,
+    ``tgt_seg``, ``neighbor_ids``, ``k_reg`` and ``median_depth`` are the
+    local shard's, and ``tgt_est`` (its ``est_*`` fields), ``k_table`` and
+    ``median_depth_table`` the gathered global tables that the target view
+    indices address; they default to the local ones."""
     V, S, M = tgt_seg.shape
     N = neighbor_ids.shape[1]
     k = M // N
     dev, f32 = tgt_seg.device, torch.float32
+    tgt_est = fm if tgt_est is None else tgt_est
+    k_table = k_reg if k_table is None else k_table
+    if median_depth_table is None:
+        median_depth_table = median_depth
 
-    tgt = gather_target_estimates(fm.est_P1, fm.est_P2, fm.est_d1, fm.est_d2,
-                                  fm.est_valid, neighbor_ids, tgt_seg, k)
+    tgt = gather_target_estimates(tgt_est.est_P1, tgt_est.est_P2,
+                                  tgt_est.est_d1, tgt_est.est_d2,
+                                  tgt_est.est_valid, neighbor_ids, tgt_seg, k)
     P1b, P2b, d1b, d2b = tgt.P1, tgt.P2, tgt.d1, tgt.d2
 
     # own estimates, broadcast over M
@@ -199,9 +211,9 @@ def affinity_dense(fm: FilteredMatches, tgt_seg, neighbor_ids, k_reg,
     # per-target-view scalars: (V, N) lookup repeated over the group's slots
     nbr = neighbor_ids.long()
     per_pair = lambda t: t[nbr].repeat_interleave(k, dim=1)[:, None, :]
-    cut_b = torch.minimum(per_pair(median_depth), scene_cut)
+    cut_b = torch.minimum(per_pair(median_depth_table), scene_cut)
     k_a = k_reg[:, None, None]
-    k_b = per_pair(k_reg)
+    k_b = per_pair(k_table)
     sig11 = torch.minimum(d1a, cut_a) * k_a
     sig12 = torch.minimum(d2a, cut_a) * k_a
     sig21 = torch.minimum(d1b, cut_b) * k_b
@@ -240,6 +252,87 @@ def compact_edges(aff: AffinityDense, tgt_seg: torch.Tensor):
     idx = torch.nonzero(aff.edge_valid.reshape(-1)).reshape(-1)
     return (idx.cpu().numpy(), aff.weight.reshape(-1)[idx].cpu().numpy(),
             tgt_seg.reshape(-1)[idx].cpu().numpy().astype(np.int64))
+
+
+def compact_kept(kept: torch.Tensor, tgt_seg: torch.Tensor):
+    """Flat indices into the (Vb, S, M) block of the kept matches, in
+    row-major order (``jnp.nonzero``'s), and each one's target segment, as
+    host arrays."""
+    idx = torch.nonzero(kept.reshape(-1)).reshape(-1)
+    return (idx.cpu().numpy(),
+            tgt_seg.reshape(-1)[idx].cpu().numpy().astype(np.int64))
+
+
+def affinity_edges_flat(est_P1, est_P2, est_d1, est_d2, est_valid, src_v,
+                        src_s, tgt_v, tgt_s, edge_ok, k_reg, median_depth,
+                        med_scene, two_sig_a_sqr: float,
+                        min_affinity: float = 0.5):
+    """Edge-wise affinity over a flat edge list: the O(E) form of
+    :func:`affinity_dense` that the blocked large-scene path uses (the same
+    math, line3D.cc:1449-1553), written in :func:`affinity_dense`'s
+    expression order so that both give the same bits for the same edge.
+
+    The ``est_*`` tables (V, S, ...) and ``k_reg``/``median_depth`` (V,)
+    cover every view; the edges (E,) name their source and target views
+    and segments.  Returns the weights (0 where invalid) and validity."""
+    dev, f32 = est_d1.device, torch.float32
+    sv, ss, tv, ts = (x.long() for x in (src_v, src_s, tgt_v, tgt_s))
+    P1a = [est_P1[sv, ss, i] for i in range(3)]                 # 3x (E,)
+    P2a = [est_P2[sv, ss, i] for i in range(3)]
+    P1b = [est_P1[tv, ts, i] for i in range(3)]
+    P2b = [est_P2[tv, ts, i] for i in range(3)]
+    d1a, d2a = est_d1[sv, ss], est_d2[sv, ss]
+    d1b, d2b = est_d1[tv, ts], est_d2[tv, ts]
+
+    def direction(P1, P2):
+        dv = [b - a for a, b in zip(P1, P2)]
+        length = torch.sqrt(dv[0] * dv[0] + dv[1] * dv[1] + dv[2] * dv[2])
+        den = length.clamp_min(EPS)
+        return [c / den for c in dv], length
+
+    dira, lena = direction(P1a, P2a)
+    dirb, lenb = direction(P1b, P2b)
+    ok = (edge_ok & est_valid[sv, ss] & est_valid[tv, ts]
+          & (lena > EPS) & (lenb > EPS))
+
+    dot = (dira[0] * dirb[0] + dira[1] * dirb[1]
+           + dira[2] * dirb[2]).clamp(-1.0, 1.0)
+    ang = torch.acos(dot) * DEG
+    ang = torch.where(ang > 90.0, 180.0 - ang, ang)
+    sim_a = torch.exp(-ang * ang / torch.tensor(two_sig_a_sqr, dtype=f32,
+                                                device=dev))
+
+    med_scene = torch.as_tensor(med_scene, dtype=f32, device=dev)
+    scene_cut = torch.where(med_scene > EPS, med_scene,
+                            torch.full_like(med_scene, float("inf")))
+    cut_a = torch.minimum(median_depth[sv], scene_cut)
+    cut_b = torch.minimum(median_depth[tv], scene_cut)
+    k_a, k_b = k_reg[sv], k_reg[tv]
+    sig11 = torch.minimum(d1a, cut_a) * k_a
+    sig12 = torch.minimum(d2a, cut_a) * k_a
+    sig21 = torch.minimum(d1b, cut_b) * k_b
+    sig22 = torch.minimum(d2b, cut_b) * k_b
+
+    def p2l(P, L0, Ld):
+        w = [p - l0 for p, l0 in zip(P, L0)]
+        w2 = w[0] * w[0] + w[1] * w[1] + w[2] * w[2]
+        proj = w[0] * Ld[0] + w[1] * Ld[1] + w[2] * Ld[2]
+        return torch.sqrt((w2 - proj * proj).clamp_min(0.0))
+
+    d11 = p2l(P1a, P1b, dirb)
+    d12 = p2l(P2a, P1b, dirb)
+    d21 = p2l(P1b, P1a, dira)
+    d22 = p2l(P2b, P1a, dira)
+
+    def expf(d, sig):
+        return torch.exp(-d * d / (2.0 * sig * sig).clamp_min(EPS))
+
+    sim_p1 = torch.minimum(expf(d11, sig11), expf(d12, sig12))
+    sim_p2 = torch.minimum(expf(d21, sig21), expf(d22, sig22))
+    sim = torch.minimum(sim_a, torch.minimum(sim_p1, sim_p2))
+
+    valid = ok & (sim > min_affinity)
+    return torch.where(valid, sim, torch.zeros_like(sim)), valid
 
 
 def best_kept_score(score3d: torch.Tensor, kept: torch.Tensor) -> torch.Tensor:

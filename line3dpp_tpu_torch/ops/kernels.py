@@ -10,7 +10,9 @@ loaded when a module is imported, so the CPU-only tests import everything.
 Every C entry point launches on the stream it is given, allocates nothing,
 and returns ``cudaGetLastError()``; :func:`launch` raises when that is not 0.
 ``LAUNCHES`` counts the calls that launched a kernel, per wrapper, in
-``ops/matching.py`` (K1), ``ops/scoring.py`` (K2), ``ops/affinity.py`` (K3),
+``ops/matching.py`` (K1: ``match_pairs``, the insertion form, and
+``match_pairs_all``, the general form), ``ops/scoring.py`` (K2:
+``score_matches`` and ``score_matches_all``, its general form), ``ops/affinity.py`` (K3),
 ``ops/lsd_cc.py`` (K4), ``ops/lsd_gather.py`` (K5, K6: ``gather_labels``
 and ``gather_merged``) and ``ops/lsd_fit.py`` (K7-K11; K9:
 ``gate_pixels`` and ``consume_survivors``; K10: ``band_counts`` and
@@ -36,7 +38,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC"]
 LIB_NAME = "libl3dkernels.so"
 
-LAUNCHES = {"match_pairs": 0, "score_matches": 0,
+LAUNCHES = {"match_pairs": 0, "match_pairs_all": 0, "score_matches": 0,
+            "score_matches_all": 0,
             "gather_target_estimates": 0, "cc_tiles": 0,
             "apply_merge_dense": 0, "gather_labels": 0, "gather_merged": 0,
             "moments": 0, "gate_moments": 0, "gate_pixels": 0,
@@ -49,10 +52,18 @@ _SIGNATURES = {
     # 13 inputs (the first the (V, S, 4) target table), P S knn,
     # epipolar_overlap, 6 outputs, stream
     "l3d_match_pairs": [_P] * 13 + [_I] * 3 + [_F] + [_P] * 6 + [_P],
+    # the same, with the key scratch before the outputs (the general form)
+    "l3d_match_pairs_all": [_P] * 13 + [_I] * 3 + [_F] + [_P] * 7 + [_P],
     # 10 inputs, V S M N knn, two_sig_a_sqr min_similarity, orientation,
     # the pre-test's cos_lo lp, 2 outputs, stream
     "l3d_score_matches": ([_P] * 10 + [_I] * 5 + [_F] * 2 + [_I] + [_F] * 2
                           + [_P] * 2 + [_P]),
+    # the same inputs and options, the per-segment counts and offsets, the
+    # record scratch, 2 outputs, stream (the general form)
+    "l3d_score_matches_all": ([_P] * 10 + [_I] * 5 + [_F] * 2 + [_I]
+                              + [_F] * 2 + [_P] * 4 + [_P] * 2 + [_P]),
+    # valid V*S M, counts, stream (the general form's counting pass)
+    "l3d_score_count_valid": [_P] + [_L, _I] + [_P] + [_P],
     # 4 inputs, V_tab S V M N knn, 2 outputs, stream
     "l3d_gather_target_estimates": [_P] * 4 + [_I] * 6 + [_P] * 2 + [_P],
     # angle active, hp wp th tw ph pw, tol, labels unconverged, stream
@@ -81,6 +92,8 @@ _SIGNATURES = {
     # slot xs ys pix tables starts, n C, out, stream
     "l3d_extents": [_P] * 6 + [_I] * 2 + [_P] + [_P],
 }
+# entry points that return a size, not an error: arguments, result
+_QUERIES = {"l3d_match_all_scratch": ([_I], _L)}
 
 
 def reset_launches() -> None:
@@ -166,6 +179,10 @@ def library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
+    for name, (argtypes, restype) in _QUERIES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = restype
     lib.l3d_error_string.argtypes = [ctypes.c_int]
     lib.l3d_error_string.restype = ctypes.c_char_p
     return lib
@@ -178,6 +195,11 @@ def launch(name: str, *args) -> None:
     if err != 0:
         msg = lib.l3d_error_string(err).decode()
         raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
+
+
+def query(name: str, *args) -> int:
+    """The size that C entry point ``name`` of ``_QUERIES`` returns."""
+    return int(getattr(library(), name)(*args))
 
 
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:

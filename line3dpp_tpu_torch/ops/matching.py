@@ -11,7 +11,9 @@ segment by overlap, ties to the lowest target index.  Only the winners'
 depths are computed.
 
 :func:`match_pairs` launches kernel K1 (``csrc/matching.cu``) for CUDA
-tensors and runs :func:`match_pairs_plain` for CPU tensors.  Both read the
+tensors and runs :func:`match_pairs_plain` for CPU tensors.  K1 has two
+forms: the insertion form for k <= ``KNN_MAX``, and the general form for
+any k <= S (k = S keeps every match: ``Config.knn <= 0``).  Both read the
 same per-view and per-pair tables (:func:`pair_tables`) and evaluate the
 same float32 expressions in the same order.  Everything is float32; the
 scene must be median-centered by the caller (line3D.cc:500-536).
@@ -27,7 +29,8 @@ from . import geometry as geo
 from . import kernels
 
 EPS = 1e-12
-KNN_MAX = 16          # largest k kernel K1 takes (csrc/matching.cu KMAX)
+KNN_MAX = 16          # largest k of K1's insertion form (csrc/matching.cu
+#                       KMAX); larger k runs its general form
 # kernel K1's pre-test (csrc/matching.cu pretest_keeps): the relative error
 # bound of its approximate quotients against the exact ones, and the margin
 # it widens them by
@@ -215,14 +218,19 @@ def match_pairs_plain(t: PairTables, epipolar_overlap: float, knn: int,
     return PairMatches(*(torch.cat(xs, dim=0) for xs in zip(*parts)))
 
 
-def match_pairs_cuda(t: PairTables, epipolar_overlap: float,
-                     knn: int) -> PairMatches:
-    """Kernel K1 on CUDA tensors; outputs in (P, S, k)."""
+def match_pairs_cuda(t: PairTables, epipolar_overlap: float, knn: int,
+                     general: bool | None = None) -> PairMatches:
+    """Kernel K1 on CUDA tensors; outputs in (P, S, k).  k <= KNN_MAX runs
+    the insertion form, larger k (any k <= S) the general form;
+    ``general=True`` runs the general form at any k (what the tests hold
+    the two forms against each other with)."""
     dev = t.segments.device
     V, S, _ = t.segments.shape
     P = t.src_idx.shape[0]
-    if not 1 <= knn <= KNN_MAX:
-        raise ValueError(f"kernel K1 takes 1 <= knn <= {KNN_MAX}, got {knn}")
+    if not 1 <= knn <= S:
+        raise ValueError(f"kernel K1 takes 1 <= knn <= S = {S}, got {knn}")
+    if general is None:
+        general = knn > KNN_MAX
     f32 = torch.float32
     for name, x, dtype, shape in (
             ("tq", t.tq, f32, (V, S, 4)),
@@ -242,13 +250,21 @@ def match_pairs_cuda(t: PairTables, epipolar_overlap: float,
     ov, dp1, dp2, dq1, dq2 = (torch.empty((P, S, knn), dtype=f32, device=dev)
                               for _ in range(5))
     p = kernels.ptr
-    kernels.launch(
-        "l3d_match_pairs", p(t.tq), p(t.mask), p(t.r1), p(t.r2),
-        p(t.n), p(t.seglen), p(t.e1), p(t.e2), p(t.num_src), p(t.num_tgt),
-        p(t.src_idx), p(t.tgt_idx), p(t.pair_valid), P, S, knn,
-        float(epipolar_overlap), p(idx), p(ov), p(dp1), p(dp2), p(dq1),
-        p(dq2), kernels.stream(dev))
-    kernels.LAUNCHES["match_pairs"] += 1
+    tables = (p(t.tq), p(t.mask), p(t.r1), p(t.r2), p(t.n), p(t.seglen),
+              p(t.e1), p(t.e2), p(t.num_src), p(t.num_tgt), p(t.src_idx),
+              p(t.tgt_idx), p(t.pair_valid), P, S, knn,
+              float(epipolar_overlap))
+    outs = (p(idx), p(ov), p(dp1), p(dp2), p(dq1), p(dq2),
+            kernels.stream(dev))
+    if general:
+        # each resident warp's key list past its shared-memory part
+        n_keys = kernels.query("l3d_match_all_scratch", S)
+        scratch = torch.empty(max(n_keys, 1), dtype=torch.int64, device=dev)
+        kernels.launch("l3d_match_pairs_all", *tables, p(scratch), *outs)
+        kernels.LAUNCHES["match_pairs_all"] += 1
+    else:
+        kernels.launch("l3d_match_pairs", *tables, *outs)
+        kernels.LAUNCHES["match_pairs"] += 1
     return PairMatches(idx, ov, dp1, dp2, dq1, dq2, ov > 0.0)
 
 

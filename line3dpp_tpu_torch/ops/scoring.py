@@ -14,7 +14,8 @@ slot: slot m belongs to neighbour group ``m // k``, and a group shares one
 target camera.  :func:`score_matches` launches kernel K2
 (``csrc/scoring.cu``) for CUDA tensors and runs :func:`score_matches_plain`
 for CPU tensors; both follow ``line3dpp_tpu.ops.scoring`` (the XLA path,
-with ``arccos``).
+with ``arccos``).  K2 has two forms: M <= ``M_SMEM`` and the general form
+for any M (``Config.knn <= 0`` gives M = N * S).
 """
 
 from __future__ import annotations
@@ -42,6 +43,8 @@ PRETEST_ANGLE_REL = 2.0**-12
 PRETEST_ANGLE_ABS = 2.0**-10
 PRETEST_DOT_ABS = 2.0**-18
 PRETEST_MIN_SIM = 2.0**-100
+M_SMEM = 1024   # largest M of K2's first form (csrc/scoring.cu M_SMEM)
+PLAIN_PLANE = 1 << 24   # elements of one pairwise plane of the plain version
 
 
 class ScoredMatches(NamedTuple):
@@ -177,9 +180,11 @@ def score_matches_plain(r1, r2, rmid, C, k_reg, tgt_C, tgt_k, d_p1, d_p2,
                         min_similarity: float = 0.5,
                         check_orientation: bool = True,
                         chunk: int = 1024) -> ScoredMatches:
-    """Plain PyTorch scoring, ``chunk`` segments at a time."""
+    """Plain PyTorch scoring, ``chunk`` segments at a time, fewer where a
+    chunk's (chunk, M, knn) planes would pass ``PLAIN_PLANE`` elements."""
     V, S, M = d_p1.shape
     VS = V * S
+    chunk = max(1, min(chunk, PLAIN_PLANE // max(M * knn, 1)))
     flat = lambda x: x.reshape(VS, *x.shape[2:])
     view_of = torch.arange(V, device=d_p1.device).repeat_interleave(S)
     score = torch.empty_like(d_p1).reshape(VS, M)
@@ -201,16 +206,23 @@ def score_matches_cuda(r1, r2, rmid, C, k_reg, tgt_C, tgt_k, d_p1, d_p2,
                        valid, *, knn: int, two_sig_a_sqr: float,
                        min_similarity: float = 0.5,
                        check_orientation: bool = True,
-                       pretest: bool = True) -> ScoredMatches:
-    """Kernel K2 on CUDA tensors.  ``pretest=False`` gives the kernel the
+                       pretest: bool = True,
+                       general: bool | None = None) -> ScoredMatches:
+    """Kernel K2 on CUDA tensors.  M <= ``M_SMEM`` runs the first form,
+    which holds a segment's valid slots in shared memory; larger M (any M
+    = N * knn) the general form: a counting pass, then the valid slots in a
+    global scratch at per-segment offsets.  ``general=True`` runs the
+    general form at any M.  ``pretest=False`` gives the kernel the
     thresholds that keep every pair, so that each runs the exact path (what
     the tests hold the pre-test against)."""
     dev = d_p1.device
     V, S, M = d_p1.shape
     N = tgt_C.shape[1]
-    if M > 1024 or M != N * knn:
-        raise ValueError(f"kernel K2 takes M = N*knn <= 1024, got M={M}, "
-                         f"N={N}, knn={knn}")
+    if M != N * knn:
+        raise ValueError(f"kernel K2 takes M = N*knn, got M={M}, N={N}, "
+                         f"knn={knn}")
+    if general is None:
+        general = M > M_SMEM
     f32 = torch.float32
     for name, x, dtype, shape in (
             ("d_p1", d_p1, f32, (V, S, M)), ("d_p2", d_p2, f32, (V, S, M)),
@@ -225,12 +237,29 @@ def score_matches_cuda(r1, r2, rmid, C, k_reg, tgt_C, tgt_k, d_p1, d_p2,
     p = kernels.ptr
     cos_lo, lp = (pretest_thresholds(two_sig_a_sqr, min_similarity)
                   if pretest else (-1.0, math.inf))
-    kernels.launch(
-        "l3d_score_matches", p(d_p1), p(d_p2), p(valid), p(r1), p(r2),
-        p(rmid), p(C), p(k_reg), p(tgt_C), p(tgt_k), V, S, M, N, knn,
-        float(two_sig_a_sqr), float(min_similarity), int(check_orientation),
-        cos_lo, lp, p(score), p(ok), kernels.stream(dev))
-    kernels.LAUNCHES["score_matches"] += 1
+    inputs = (p(d_p1), p(d_p2), p(valid), p(r1), p(r2), p(rmid), p(C),
+              p(k_reg), p(tgt_C), p(tgt_k), V, S, M, N, knn,
+              float(two_sig_a_sqr), float(min_similarity),
+              int(check_orientation), cos_lo, lp)
+    if general:
+        # the counting pass, then each segment's records at its offset
+        counts = torch.empty(V * S, dtype=torch.int32, device=dev)
+        kernels.launch("l3d_score_count_valid", p(valid), V * S, M,
+                       p(counts), kernels.stream(dev))
+        ends = torch.cumsum(counts, 0, dtype=torch.int64)
+        total = int(ends[-1]) if V * S else 0
+        offsets = (ends - counts).contiguous()
+        rec_a, rec_b = (torch.empty((max(total, 1), 4), dtype=f32,
+                                    device=dev) for _ in range(2))
+        rec_slot = torch.empty(max(total, 1), dtype=torch.int32, device=dev)
+        kernels.launch("l3d_score_matches_all", *inputs, p(offsets),
+                       p(rec_a), p(rec_b), p(rec_slot), p(score), p(ok),
+                       kernels.stream(dev))
+        kernels.LAUNCHES["score_matches_all"] += 1
+    else:
+        kernels.launch("l3d_score_matches", *inputs, p(score), p(ok),
+                       kernels.stream(dev))
+        kernels.LAUNCHES["score_matches"] += 1
     return ScoredMatches(score, ok)
 
 
@@ -238,19 +267,25 @@ def score_matches(r1, r2, rmid, C, k_reg, neighbor_ids, d_p1, d_p2, valid,
                   knn: int, two_sig_a_sqr: float,
                   min_similarity: float = 0.5,
                   check_orientation: bool = True,
-                  chunk: int = 1024) -> ScoredMatches:
+                  chunk: int = 1024, C_table=None,
+                  k_table=None) -> ScoredMatches:
     """Score the (V, S, M) match table; M = N * knn is neighbour-grouped.
 
     r1, r2, rmid (V, S, 3) rays, C (V, 3), k_reg (V,), neighbor_ids (V, N).
-    CUDA tensors go through kernel K2, CPU tensors through the plain
-    version."""
+    Where the V source views are a block or a shard of the scene,
+    ``C_table``/``k_table`` are the whole scene's tables that the target
+    view indices of ``neighbor_ids`` address (by default ``C`` and
+    ``k_reg``).  CUDA tensors go through kernel K2, CPU tensors through the
+    plain version."""
     V, S, M = d_p1.shape
     N = neighbor_ids.shape[1]
     if M != N * knn:
         raise ValueError("match slots must be neighbor-grouped: M == N*k")
     nbr = neighbor_ids.long()
-    tgt_C = C[nbr].contiguous()                       # (V, N, 3)
-    tgt_k = k_reg[nbr].contiguous()                   # (V, N)
+    C_table = C if C_table is None else C_table
+    k_table = k_reg if k_table is None else k_table
+    tgt_C = C_table[nbr].contiguous()                 # (V, N, 3)
+    tgt_k = k_table[nbr].contiguous()                 # (V, N)
     kw = dict(knn=knn, two_sig_a_sqr=two_sig_a_sqr,
               min_similarity=min_similarity,
               check_orientation=check_orientation)

@@ -236,6 +236,130 @@ def test_k2_pair_exactly_at_the_cut(cuda, term):
             assert float(got.score3d[0, 0, 0]) == want, (ms, pretest)
 
 
+def _one_line_tables(dev, S=1500, seed=5):
+    """Every view's S segments are copies of one line's projection, half
+    exact (ties) and half with 0.3 px of noise: each source row keeps more
+    than 1024 matches, which K1's general form lists past its shared
+    memory into its global scratch and sorts there."""
+    inp = synthetic_step_inputs(seed=seed, V=3, S=S, N=2, n_lines=S)
+    segs = inp["segments"]
+    rng = np.random.default_rng(seed)
+    noise = rng.normal(0.0, 0.3, segs.shape).astype(np.float32)
+    noise[:, ::2] = 0.0
+    segs[:] = segs[:, :1] + noise
+    inp["seg_mask"][:] = True
+    inp["seg_mask"][1, 7] = False
+    return _tables(inp, dev)
+
+
+@pytest.mark.parametrize("knn", [17, 40, 700])
+def test_k1_general_form_equals_plain_bit_for_bit(cuda, knn):
+    """The general form (k > 16) selects what the plain version's stable
+    sort selects, in its order, with the same depths; k = S keeps every
+    valid match."""
+    inp = synthetic_step_inputs(seed=1, V=6, S=700, N=4, n_lines=600)
+    inp["pair_valid"][2, 1] = False
+    inp["seg_mask"][3, 5:40] = False
+    t = _tables(inp, cuda)
+    kernels.reset_launches()
+    got = matching.match_pairs_cuda(t, 0.25, knn)
+    assert kernels.LAUNCHES["match_pairs_all"] == 1
+    assert kernels.LAUNCHES["match_pairs"] == 0
+    want = matching.match_pairs_plain(t, 0.25, knn, chunk=4)
+    assert int(want.valid.sum()) > 1000
+    for name in got._fields:
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+
+
+def test_k1_general_form_past_its_shared_memory(cuda):
+    t = _one_line_tables(cuda)
+    S = t.mask.shape[1]
+    got = matching.match_pairs_cuda(t, 0.25, S)
+    want = matching.match_pairs_plain(t, 0.25, S, chunk=1)
+    assert int(want.valid.sum(-1).max()) > 1024
+    for name in got._fields:
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+
+
+@pytest.mark.parametrize("knn", [1, 10, 16])
+def test_k1_forms_agree_and_keep_the_prefix(cuda, knn):
+    """Both forms at the same k give the same bits; the general form at k =
+    S gives the insertion form's k slots as its first k."""
+    t, _, _ = _crafted_tables(cuda)
+    S = t.mask.shape[1]
+    insertion = matching.match_pairs_cuda(t, 0.25, knn)
+    general = matching.match_pairs_cuda(t, 0.25, knn, general=True)
+    every = matching.match_pairs_cuda(t, 0.25, S)
+    for name in insertion._fields:
+        a = getattr(insertion, name)
+        assert torch.equal(a, getattr(general, name)), name
+        assert torch.equal(a, getattr(every, name)[..., :knn]), name
+
+
+def test_k1_cuda_rejects_k_beyond_s(cuda):
+    t = _tables(synthetic_step_inputs(seed=2, V=3, S=40, N=2), cuda)
+    with pytest.raises(ValueError, match="knn"):
+        matching.match_pairs_cuda(t, 0.25, 41)
+
+
+@pytest.mark.parametrize("case", ["default", "knn1", "M1024",
+                                  "no_orientation", "min_similarity_0"])
+def test_k2_general_form_equals_first_form(cuda, case):
+    """On M <= 1024 the general form gives the first form's bits."""
+    kw = dict(two_sig_a_sqr=200.0, min_similarity=0.5,
+              check_orientation=case != "no_orientation")
+    shape = dict(knn1=dict(N=8, k=1), M1024=dict(V=2, S=6, N=4, k=256))
+    args, knn = _k2_case(cuda, **shape.get(case, {}))
+    if case == "min_similarity_0":
+        kw["min_similarity"] = 0.0
+    kernels.reset_launches()
+    first = scoring.score_matches_cuda(*args, knn=knn, **kw)
+    general = scoring.score_matches_cuda(*args, knn=knn, general=True, **kw)
+    assert kernels.LAUNCHES["score_matches"] == 1
+    assert kernels.LAUNCHES["score_matches_all"] == 1
+    assert torch.equal(first.score3d, general.score3d)
+    assert torch.equal(first.valid, general.valid)
+    assert int((first.score3d > 0).sum()) > 50
+
+
+@pytest.mark.parametrize("shape", [dict(V=2, S=8, N=4, k=300),
+                                   dict(V=1, S=3, N=3, k=1000)])
+def test_k2_general_form_beyond_1024(cuda, shape):
+    """M > 1024 runs the general form: against its own exact path (no
+    pre-test) bit for bit, and the plain version."""
+    args, knn = _k2_case(cuda, **shape)
+    kernels.reset_launches()
+    got = _k2_against_exact_path_and_plain(
+        args, dict(knn=knn, two_sig_a_sqr=200.0, min_similarity=0.5))
+    assert kernels.LAUNCHES["score_matches_all"] == 2
+    assert kernels.LAUNCHES["score_matches"] == 0
+    assert int((got.score3d > 0).sum()) > 50
+
+
+def test_forward_step_cuda_all_matches(cuda):
+    """knn = S through the step on the card: K1's general form (M = 4 * 64
+    = 256 keeps K2's first form), the same outputs as the CPU's up to
+    transcendental rounding."""
+    inp = synthetic_step_inputs(seed=3, V=6, S=64, N=4)
+    kw = dict(STEP_KW, knn=64)
+    kernels.reset_launches()
+    got = step.forward_step(
+        *(torch.from_numpy(inp[n]).to(cuda) for n in STEP_ARRAYS), **kw)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["match_pairs_all"] == 1
+    assert kernels.LAUNCHES["score_matches"] == 1
+    want = step.forward_step(
+        *(torch.from_numpy(inp[n]) for n in STEP_ARRAYS), **kw)
+    for name in ("tgt_seg", "match_valid", "kept", "est_valid", "aff_valid"):
+        assert torch.equal(getattr(got, name).cpu(), getattr(want, name)), \
+            name
+    for name in ("score3d", "est_P1", "est_P2", "est_d1", "est_d2",
+                 "aff_weight", "median_depth"):
+        torch.testing.assert_close(getattr(got, name).cpu(),
+                                   getattr(want, name), rtol=1e-4,
+                                   atol=1e-4)
+
+
 def test_k3_equals_plain_bit_for_bit(cuda):
     rng = np.random.default_rng(0)
     V, S, N, k = 5, 300, 3, 7

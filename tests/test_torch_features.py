@@ -482,7 +482,25 @@ def test_collinear_halves_join_as_in_jax():
 @pytest.mark.parametrize("kw", [dict(view_block=4), dict(knn=0),
                                 dict(knn=-1)])
 def test_only_the_blocked_options_raise(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP item 14"):
-        lt.Line3D(lt.Config(optimize=False, **kw), device="cpu")
+    """Item 14's options raised until the blocked path and the all-matches
+    mode were ported (the name is kept); they now run, with item 13's
+    options on, and recover the scene's lines (tests/test_torch_blocked.py
+    holds them against JAX)."""
+    from tests.test_config_modes import _scene
+
+    cams, P, Q = _scene(np.random.default_rng(0))
+    pipe = lt.Line3D(lt.Config(optimize=False, num_neighbors=4,
+                               max_line_segments=64, perform_rdd=True,
+                               collinearity_t=2.0, **kw), device="cpu")
+    for i, c in enumerate(cams):
+        pipe.add_view(i, lt.Camera(c.K, c.R, c.t, c.width, c.height),
+                      np.hstack([c.project(P), c.project(Q)]))
+    pipe.match_images()
+    assert ("edges_flat" in pipe._last_state) == ("view_block" in kw)
+    lines = pipe.reconstruct_3d_lines()
+    assert len(lines) >= 8
+    pred = np.concatenate([l.segments3d for l in lines])
+    m = golden.segment_set_metrics(pred, np.hstack([P, Q]), tol=0.05)
+    assert m["recall"] > 0.9, m
     lt.Line3D(lt.Config(perform_rdd=True, collinearity_t=2.0,
                         **COMPENSATIONS), device="cpu")

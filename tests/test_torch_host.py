@@ -260,11 +260,24 @@ def test_line3d_without_a_card_raises(monkeypatch):
     (dict(optimize=False, knn=0), 14),
 ])
 def test_options_outside_the_slice_raise(kw, item):
-    """Item 14's options raise, naming the item; item 13's have been
-    ported and construct (tests/test_torch_features.py runs them)."""
-    if item == 13:
-        assert lt.Line3D(lt.Config(**kw), device="cpu").config == \
-            lt.Config(**kw)
-        return
-    with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}\\)"):
-        lt.Line3D(lt.Config(**kw), device="cpu")
+    """Every option of items 13 and 14 has been ported (the name is kept
+    from when they raised) and constructs; item 14's also run phase 2 on
+    a small scene, the blocked path where a block is smaller than the
+    scene (tests/test_torch_features.py and test_torch_blocked.py run
+    them end to end)."""
+    pipe = lt.Line3D(lt.Config(**kw), device="cpu")
+    assert pipe.config == lt.Config(**kw)
+    if item == 14:
+        from tests.test_config_modes import _scene
+
+        pipe = lt.Line3D(dataclasses.replace(pipe.config,
+                                             max_line_segments=64),
+                         device="cpu")
+        cams, P, Q = _scene(np.random.default_rng(3))
+        for i, c in enumerate(cams):
+            pipe.add_view(i, lt.Camera(c.K, c.R, c.t, c.width, c.height),
+                          np.hstack([c.project(P), c.project(Q)]))
+        pipe.match_images()
+        st = pipe._last_state
+        assert ("edges_flat" in st) == (kw.get("view_block", 0) > 0)
+        assert bool(st["est"].est_valid.any())

@@ -167,16 +167,18 @@ def test_tile_labels_plus_merge_equal_global_components(rng):
 
 
 def test_band_counts_and_lsd_options_raise():
-    """What still raises: malformed bands, and the pipeline options that
-    are not ported, each naming its ROADMAP item.  The LSD options run:
-    ``add_image`` under ``Config(lsd_rescue=True, lsd_seed_gate=True)``
-    detects with them and records the detector's stats."""
+    """What still raises: malformed bands.  Every pipeline option has been
+    ported (the blocked path last; the name is kept from when it raised),
+    so ``view_block`` beside the LSD options constructs.  The LSD options
+    run: ``add_image`` under ``Config(lsd_rescue=True,
+    lsd_seed_gate=True)`` detects with them and records the detector's
+    stats."""
     z = torch.zeros(4)
     with pytest.raises(ValueError, match="bands"):
         lsd_fit.band_counts(z.int(), z, z, z, torch.zeros((1, 8)), 1,
                             bands=((1.0, 2.0),))
-    with pytest.raises(NotImplementedError, match="item 14"):
-        lt.Line3D(lt.Config(lsd_rescue=True, view_block=4), device="cpu")
+    cfg = lt.Config(lsd_rescue=True, view_block=4)
+    assert lt.Line3D(cfg, device="cpu").config == cfg
     img = lines_image()
     cam = lt.Camera(np.diag([200.0, 200.0, 1.0]), np.eye(3), np.zeros(3),
                     200, 160)

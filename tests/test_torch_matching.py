@@ -142,7 +142,7 @@ def test_cuda_wrapper_rejects_what_the_kernel_does_not_take():
     t = matching.pair_tables(
         *(torch.from_numpy(a) for a in _args(synthetic_step_inputs())))
     with pytest.raises(ValueError, match="knn"):
-        matching.match_pairs_cuda(t, 0.25, matching.KNN_MAX + 1)
+        matching.match_pairs_cuda(t, 0.25, t.mask.shape[1] + 1)
     with pytest.raises(ValueError, match="knn"):
         matching.match_pairs_cuda(t, 0.25, 0)
     with pytest.raises(ValueError, match="CUDA"):
