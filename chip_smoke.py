@@ -36,14 +36,15 @@
    ``tests/make_torch_colmap_reference.py`` and
    ``make_torch_features_reference.py`` with the JAX package on the CPU).
    Then K1's and K2's general forms (``general_kernel_checks``): K1 at
-   k = 20 on the 416 pairs and at k = S = 3000 on views 0-2's 48 pairs
-   (one all-matches block) against the plain matcher bit for bit, the
+   k = 20 on the 416 pairs (a kernels-line row of its own) and at k = S =
+   3000 on views 0-2's 48 pairs (one all-matches block, the rows past its
+   list printed) against the plain matcher bit for bit, the
    insertion form at k = 10 against the first 10 slots at k = S; K2's
    general form against the plain scorer at knn = ``K2_WIDE_KNN`` (M =
    1600, views 0-2) and against the first form on the M = 160 tables, bit
    for bit, and timed on the all-matches block (M = 48,000) with its
-   records and pre-test survivors counted for its bound
-   (``sparse_pretest_counts``).  Then items 14 and 15 through the entry
+   records, the segments past them and the pre-test survivors counted for
+   its bound (``sparse_pretest_counts``).  Then items 14 and 15 through the entry
    points (``item14_15_phase``): the 26 views at ``view_block`` 4 and 13
    (the fused TXT byte for byte, K1 and K2 once a block, no K3), the JAX
    package's 104-view scene (``build_scale_scene``, a copy of
@@ -2196,12 +2197,17 @@ def sparse_pretest_counts(args, kw, chunk: int = 32) -> dict:
 
 def general_kernel_checks(inp, cfg, dev) -> tuple[list, dict]:
     """K1's and K2's general forms on the 26 views: K1 at k = 20 (416
-    pairs) and at k = S (the 48 pairs of views 0-2, one all-matches block)
-    against the plain matcher, and its k = S prefix against the insertion
-    form at k = 10; K2's general form against the plain scorer at knn = 100
-    (M = 1600, views 0-2) and against the first form on the main path's
-    M = 160 tables; K2's time on the all-matches block (M = 48,000) with
-    the counts behind its bound."""
+    pairs, a kernels-line row of its own, and the two forms at the main
+    path's k = 10 bit for bit and timed in turns: ``forms_at_k10``) and at
+    k = S (the 48 pairs of views 0-2, one all-matches block) against the
+    plain matcher, and its
+    k = S prefix against the insertion form at k = 10, with the rows past
+    its list (``matching.LIST_LEN``: the overflow path) counted; K2's
+    general form against the plain scorer at knn = 100 (M = 1600, views
+    0-2) and against the first form on the main path's M = 160 tables
+    (both timed there in turns: ``forms_at_m160``); K2's time on the
+    all-matches block (M = 48,000) with the counts behind its bound and
+    the segments past its records (``scoring.RECORDS``)."""
     import torch
     from line3dpp_tpu_torch.ops import matching, scoring
 
@@ -2217,15 +2223,53 @@ def general_kernel_checks(inp, cfg, dev) -> tuple[list, dict]:
                              d["F"].reshape(-1, 3, 3),
                              d["pair_valid"].reshape(-1))
     info = {}
-    # K1 at k = 20 over every pair (F3)
+    # K1 at k = 20 over every pair (F3): its own row, bound by the
+    # candidates' operations, its bytes beside (the general form writes
+    # the validity too: 25 B a slot)
     k20 = matching.match_pairs_cuda(t, eo, 20)
-    same_matches(k20, matching.match_pairs_plain(t, eo, 20, chunk=8),
-                 f"K1 general form, k = 20, {V * N} pairs, against plain")
-    info["k1_k20_ms"] = cuda_ms(lambda: matching.match_pairs_cuda(t, eo, 20),
-                                reps=3)
-    info["k1_k20_device_ms"] = device_ms(
-        lambda: matching.match_pairs_cuda(t, eo, 20), 3)
-    del k20
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    want = matching.match_pairs_plain(t, eo, 20, chunk=8)
+    end.record()
+    torch.cuda.synchronize()
+    same_matches(k20, want, f"K1 general form, k = 20, {V * N} pairs, "
+                 "against plain")
+    moved = nbytes(t.segments, t.mask, t.r1, t.r2, t.n, t.seglen, t.e1,
+                   t.e2, t.num_src, t.num_tgt, t.src_idx, t.tgt_idx,
+                   t.pair_valid) + nbytes(*k20)
+    ops = K1_OPS_PER_CANDIDATE * k1_candidates(t)
+    b_ms, by = bound(ops, moved)
+    k1 = lambda: matching.match_pairs_cuda(t, eo, 20)
+    row20 = dict(name="K1 match_pairs_all (k = 20)", route="cuda",
+                 source="line3dpp_tpu_torch/csrc/matching.cu",
+                 replaces="line3dpp_tpu/ops/matching_pallas.py:233",
+                 max_abs_err=0.0, ms=cuda_ms(k1, reps=3),
+                 device_ms=device_ms(k1, 3), plain_ms=start.elapsed_time(end),
+                 bound_ms=b_ms, bound_by=by,
+                 bound_bytes_ms=1e3 * moved / PEAK_BYTES, library_ms=None,
+                 shape=f"k = 20, {V * N} pairs", launch_path="knn20")
+    del k20, want
+    # K1's two forms at the main path's k over every pair, in turns: the
+    # general form's list (k <= LIST_LEN: an exact top-k) against the
+    # insertion form's registers
+    knn = inp["knn"]
+    ins = matching.match_pairs_cuda(t, eo, knn)
+    gen = matching.match_pairs_cuda(t, eo, knn, general=True)
+    same_matches(gen, ins, f"K1 forms at k = {knn}, {V * N} pairs: the "
+                 "general form against the insertion form")
+    del ins, gen
+    forms = dict(insertion=lambda: matching.match_pairs_cuda(t, eo, knn),
+                 general=lambda: matching.match_pairs_cuda(
+                     t, eo, knn, general=True))
+    turns = {name: [] for name in forms}
+    for name in ("insertion", "general", "general", "insertion"):
+        turns[name].append((cuda_ms(forms[name], reps=3),
+                            device_ms(forms[name], 3)))
+    k10 = {f"{name}_{unit}": float(np.mean([t_[i] for t_ in turns[name]]))
+           for name in forms for i, unit in enumerate(("ms", "device_ms"))}
+    print(f"K1 forms at k = {knn}, {V * N} pairs, in turns (insertion, "
+          "general, general, insertion): " + json.dumps(k10), flush=True)
+    row20["forms_at_k10"] = k10
     # K1 at k = S over one block's pairs
     tb = pair_subset(t, 0, 3 * N)
     every = matching.match_pairs_cuda(tb, eo, S)
@@ -2242,13 +2286,16 @@ def general_kernel_checks(inp, cfg, dev) -> tuple[list, dict]:
     counts = every.valid.sum(-1)
     info["k1_kS_valid_per_row"] = dict(
         mean=float(counts.float().mean()), max=int(counts.max()),
-        over_1024=int((counts > 1024).sum()))
+        over_list=int((counts > matching.LIST_LEN).sum()),
+        list_len=matching.LIST_LEN, rows=int(counts.numel()))
+    print("K1 general form, k = S: rows past the list (the overflow path): "
+          + json.dumps(info["k1_kS_valid_per_row"]), flush=True)
     k1 = lambda: matching.match_pairs_cuda(tb, eo, S)
     torch.cuda.synchronize()
     ops = K1_OPS_PER_CANDIDATE * k1_candidates(tb)
     moved = nbytes(tb.segments, tb.mask, tb.r1, tb.r2, tb.n, tb.seglen,
                    tb.e1, tb.e2, tb.num_src, tb.num_tgt, tb.src_idx,
-                   tb.tgt_idx, tb.pair_valid) + nbytes(*every[:6])
+                   tb.tgt_idx, tb.pair_valid) + nbytes(*every)
     plain_ms = cuda_ms(lambda: matching.match_pairs_plain(tb, eo, S, 2),
                        reps=1, warmup=0)
     b_ms, by = bound(ops, moved)
@@ -2273,8 +2320,13 @@ def general_kernel_checks(inp, cfg, dev) -> tuple[list, dict]:
           "K2's general form: its pre-test changes a bit")
     del every_pair
     n = sparse_pretest_counts(args, kw)
+    seg_counts = args[9].sum(-1)
+    n["segments_over_records"] = int((seg_counts > scoring.RECORDS).sum())
+    n["records"] = scoring.RECORDS
+    n["max_valid_slots"] = int(seg_counts.max())
     print("K2 general form, all-matches block (views 0-2, M = "
-          f"{args[7].shape[2]}): " + json.dumps(n), flush=True)
+          f"{args[7].shape[2]}; segments past the records take the overflow "
+          "path): " + json.dumps(n), flush=True)
     k2 = lambda: scoring.score_matches_cuda(*args, **kw)
     ops = K2_PRETEST_OPS_PER_PAIR * n["pairs"] + K2_OPS_PER_PAIR * n[
         "survivors"]
@@ -2338,7 +2390,7 @@ def general_kernel_checks(inp, cfg, dev) -> tuple[list, dict]:
                 forms_at_m160=m160)
     del a, b, args, pm, t, tb
     torch.cuda.empty_cache()
-    return [row1, row2], n
+    return [row20, row1, row2], n
 
 
 def txt_bytes(pipe) -> bytes:
@@ -2793,8 +2845,11 @@ def main() -> None:
         r["launches_default"] = default_launches[key]
         r["launches_rect_improve"] = rect_launches[key]
         if key in ("match_pairs_all", "score_matches_all"):
-            # the general forms' path: all matches on the 26 views
-            r["launches"] = all_matches_launches[key]
+            # the general forms' paths: all matches on the 26 views, or
+            # the knn = 20 run for K1's row at k = 20
+            path = r.pop("launch_path", None)
+            r["launches"] = (item14_15[path]["launches"][key] if path
+                             else all_matches_launches[key])
     print(json.dumps({"undistort": undistorted}), flush=True)
     print(json.dumps({"facade_rounds": facade_rounds}), flush=True)
     print(json.dumps({"full_size": full}), flush=True)

@@ -36,6 +36,7 @@ def detect_line_segments(image, max_width: int = -1, device=None):
     return detect(image, max_width=max_width, device=device)
 
 
+__version__ = "0.1.0"   # the JAX package's
 __all__ = ["Config", "Camera", "Line3D", "FinalLine3D", "detect",
            "detect_line_segments", "load_bin", "load_reference_bin",
            "rotation_from_rpy", "rotation_from_quaternion",

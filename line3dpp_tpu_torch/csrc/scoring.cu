@@ -67,16 +67,24 @@
 // pretest_keeps_plain is the same test in torch.
 //
 // The general form, for M > 1024 (any M = N * k the device memory holds;
-// the reference's kNN <= 0 gives M = N * S): the valid slots of a segment
-// no longer fit one warp's shared memory.  A counting pass
-// (count_valid_kernel) gives each segment's valid slots; their exclusive
-// sum places each segment's records in a global scratch.  Then one warp
-// per segment runs the same set-up (slot_setup) and compacts the slots
-// that pass the gate into its records, in ascending slot order, and runs
-// the same pair step (pair_step) with its partners staged 32 at a time
-// through shared memory: the same pre-test, the same exact path, the same
-// ascending group order, so score3d and valid equal the first form's and
-// the plain version's bit for bit.  Its records are 36 B a valid slot.
+// the reference's kNN <= 0 gives M = N * S): a segment's valid slots no
+// longer fit a shared memory sized by M, so the records are sized by the
+// valid count.  A block of SEG_WARPS warps per segment writes the zeros of
+// its score and validity rows with 16-byte stores, lists its valid slots
+// by reading the validity row 16 bytes a thread (the set bytes ranked by
+// the block's prefix over the threads' counts), runs the same set-up
+// (slot_setup) on those slots only, a slot a thread, compacting the slots
+// that pass the gate in ascending slot order into records of 36 B in
+// shared memory (room for `records`), and runs the same pair step
+// (pair_step) with the partners broadcast from there, the block's warps
+// sharing the own records: the same pre-test, the same exact path, the
+// same ascending group order, so score3d and valid equal the first form's
+// and the plain version's bit for bit.  A segment with more valid slots
+// than its room is flagged and finished by the overflow path, persistent
+// blocks launched behind it that read the flagged count on the device and
+// keep the records in a per-block region of a global scratch: no counting
+// pass, no host read.  What bounds it on the H100: the zeros (5 B a slot,
+// 2.16 GB on an all-matches block of 3 views) and the validity read.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -104,7 +112,7 @@ constexpr int MAX_WARPS = 4;      // segments per block, one warp each
 constexpr size_t SMEM = 48 << 10; // without the opt-in for more
 constexpr unsigned FULL = 0xffffffffu;
 constexpr int M_SMEM = 1024;      // the first form's largest M
-constexpr int ALL_WARPS = 4;      // general form: segments per block
+constexpr int RECORDS_MAX = 6144; // general form: most records a segment
 
 // One segment: its valid slots after the orientation gate, compacted in
 // ascending slot order, A = (dx, dy, dz, d1) and B = (d2, group << GSHIFT
@@ -318,107 +326,233 @@ __global__ void __launch_bounds__(32 * MAX_WARPS) score_kernel(
   }
 }
 
-// ---- the general form
+// ---- the general form: a block of SEG_WARPS warps per segment
 
-// valid slots per segment: one warp per segment
-__global__ void __launch_bounds__(256) count_valid_kernel(
-    const uint8_t* __restrict__ valid, int64_t VS, int M,
-    int32_t* __restrict__ counts) {
-  const int64_t vs = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (vs >= VS) return;
-  const uint8_t* row = valid + vs * M;
-  int c = 0;
-  if ((M & 15) == 0 && ((uintptr_t)row & 15) == 0) {
-    // bools are 0 or 1: the set bits of 16 bytes count them
-    const uint4* r4 = reinterpret_cast<const uint4*>(row);
-    for (int i = lane; i < M / 16; i += 32) {
-      const uint4 x = __ldg(r4 + i);
-      c += __popc(x.x) + __popc(x.y) + __popc(x.z) + __popc(x.w);
-    }
-  } else {
-    for (int i = lane; i < M; i += 32) c += row[i] != 0;
-  }
-#pragma unroll
-  for (int d = 16; d > 0; d >>= 1) c += __shfl_xor_sync(FULL, c, d);
-  if (lane == 0) counts[vs] = c;
+constexpr int SEG_WARPS = 4;
+constexpr int SEG_THREADS = 32 * SEG_WARPS;
+
+// Zeros over p[0, n) by the block, 16-byte stores where aligned.
+template <typename T>
+__device__ __forceinline__ void zero_row(T* p, int64_t n) {
+  constexpr int PER = 16 / sizeof(T);
+  const int t = threadIdx.x;
+  const int64_t a = ((16 - ((uintptr_t)p & 15)) & 15) / sizeof(T);
+  const int64_t head = a < n ? a : n;
+  if (t < head) p[t] = T(0);
+  const int64_t body = (n - head) / PER;
+  uint4* q = reinterpret_cast<uint4*>(p + head);
+  for (int64_t i = t; i < body; i += SEG_THREADS)
+    q[i] = make_uint4(0, 0, 0, 0);
+  const int64_t done = head + body * PER;
+  if (t < n - done) p[done + t] = T(0);
 }
 
-__global__ void __launch_bounds__(32 * ALL_WARPS) score_all_kernel(
-    const float* __restrict__ d_p1, const float* __restrict__ d_p2,
+// The set bytes of a word of bools, one bit each.
+__device__ __forceinline__ unsigned byte_bits(unsigned w) {
+  const unsigned v = __vcmpne4(w, 0u) & 0x01010101u;
+  return (v | v >> 7 | v >> 14 | v >> 21) & 15u;
+}
+
+// The block's prefix of one count a thread (a warp scan, then the warps'
+// totals through shared memory, double-buffered by the caller's step
+// parity): the count before this thread and the block's total.
+__device__ __forceinline__ int block_prefix(int cnt, int (*wsum)[SEG_WARPS],
+                                            int& parity, int& total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int incl = cnt;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int y = __shfl_up_sync(FULL, incl, d);
+    if (lane >= d) incl += y;
+  }
+  int* w = wsum[parity];
+  parity ^= 1;
+  if (lane == 31) w[warp] = incl;
+  __syncthreads();
+  int before = 0;
+  total = 0;
+#pragma unroll
+  for (int i = 0; i < SEG_WARPS; ++i) {
+    before += i < warp ? w[i] : 0;
+    total += w[i];
+  }
+  return before + incl - cnt;
+}
+
+// The valid slots of one row of bools, listed in ascending order into
+// SL[0, min(count, cap)) by the block: 16 bytes a thread (2048 slots a
+// block step) where the row is aligned, a byte a thread at its ragged
+// ends, ranked by the block's prefix over the threads' counts.  Returns
+// the count.
+__device__ __forceinline__ int list_valid(const uint8_t* row, int M,
+                                          int32_t* SL, int cap,
+                                          int (*wsum)[SEG_WARPS],
+                                          int& parity) {
+  const int t = threadIdx.x;
+  const int a = (int)((16 - ((uintptr_t)row & 15)) & 15);
+  const int head = a < M ? a : M;
+  const int body = (M - head) / 16;
+  const int tail0 = head + body * 16;
+  int nv = 0;
+  // one step: this thread's set bits, slot m0 + bit
+  auto step = [&](unsigned bits, int m0) {
+    int total;
+    int r = nv + block_prefix(__popc(bits), wsum, parity, total);
+    for (; bits; bits &= bits - 1, ++r)
+      if (r < cap) SL[r] = m0 + __ffs(bits) - 1;
+    nv += total;
+  };
+  step(t < head && row[t] != 0, t);
+  const uint4* q = reinterpret_cast<const uint4*>(row + head);
+  constexpr int U = 2;  // chunks a thread has in flight
+  for (int c0 = 0; c0 < body; c0 += SEG_THREADS * U) {
+    unsigned bits[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int c = c0 + u * SEG_THREADS + t;
+      bits[u] = 0;
+      if (c < body) {
+        const uint4 x = __ldg(q + c);
+        bits[u] = byte_bits(x.x) | byte_bits(x.y) << 4 |
+                  byte_bits(x.z) << 8 | byte_bits(x.w) << 12;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      step(bits[u], head + (c0 + u * SEG_THREADS + t) * 16);
+  }
+  step(tail0 + t < M && row[tail0 + t] != 0, tail0 + t);
+  return nv;
+}
+
+// Segment vs by one block: the zeros of its row (``zeros``), its valid
+// slots listed, set up (slot_setup) a slot a thread and compacted in place
+// in ascending slot order into its records A, B, SL (room for cap; returns
+// false, with nothing but the zeros written, when the segment has more
+// valid slots), then the first form's pair step with the partners
+// broadcast from the records, each warp taking every SEG_WARPS-th group of
+// 32 own records, and each passing slot's score.
+__device__ __forceinline__ bool score_segment(
+    int64_t vs, const float* __restrict__ d_p1, const float* __restrict__ d_p2,
     const uint8_t* __restrict__ valid, const float* __restrict__ ray1,
     const float* __restrict__ ray2, const float* __restrict__ raym,
     const float* __restrict__ C, const float* __restrict__ k_reg,
-    const float* __restrict__ tgt_C, const float* __restrict__ tgt_k,
-    int64_t VS, int S, int M, int N, int knn, float two_sig_a_sqr,
-    float min_similarity, int check_orientation, float cos_lo, float lp,
-    const int64_t* __restrict__ offsets,  // (VS,) first record of a segment
-    float4* __restrict__ rec_a,           // (valid slots,) dx dy dz d1
-    float4* __restrict__ rec_b,           // (valid slots,) d2 group den1 den2
-    int32_t* __restrict__ rec_slot,       // (valid slots,) m
+    const float* __restrict__ tgt_C, const float* __restrict__ tgt_k, int S,
+    int M, int N, int knn, float two_sig_a_sqr, float min_similarity,
+    int check_orientation, float cos_lo, float lp, float4* A, float4* B,
+    int32_t* SL, int cap, bool zeros, int (*wsum)[SEG_WARPS],
     float* __restrict__ score, uint8_t* __restrict__ ok_out) {
-  __shared__ float4 tiles[ALL_WARPS][2][32];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int64_t vs = (int64_t)blockIdx.x * ALL_WARPS + warp;
-  if (vs >= VS) return;  // the whole warp; no block barrier
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
   const int v = (int)(vs / S);
   const int64_t o0 = vs * M;
-  float4* A = rec_a + offsets[vs];
-  float4* B = rec_b + offsets[vs];
-  int32_t* SL = rec_slot + offsets[vs];
+  if (zeros) {
+    zero_row(score + o0, M);
+    zero_row(ok_out + o0, M);
+  }
+  int parity = 0;
+  const int nv = list_valid(valid + o0, M, SL, cap, wsum, parity);
+  if (nv > cap) return false;  // the block's count: uniform
+  __syncthreads();
 
-  // ---- set-up, as the first form's, into the segment's records
-  int nv = 0;
-  for (int m0 = 0; m0 < M; m0 += 32) {
-    const int m = m0 + lane;
-    const int64_t o = o0 + m;
+  // set-up of the listed slots; those that pass move down to their rank
+  // (every listed slot of a step is read before the prefix's barrier)
+  int ng = 0;
+  for (int i0 = 0; i0 < nv; i0 += SEG_THREADS) {
+    const int i = i0 + t;
     bool ok = false;
     float4 ea, eb;
-    if (m < M && valid[o] != 0) {
-      ok = slot_setup(o, m, v, vs, N, knn, d_p1, d_p2, ray1, ray2, raym, C,
-                      k_reg, tgt_C, tgt_k, check_orientation, ea, eb);
+    int m = 0;
+    if (i < nv) {
+      m = SL[i];
+      ok = slot_setup(o0 + m, m, v, vs, N, knn, d_p1, d_p2, ray1, ray2, raym,
+                      C, k_reg, tgt_C, tgt_k, check_orientation, ea, eb);
       eb.y = __int_as_float(m / knn);
     }
-    const unsigned bal = __ballot_sync(FULL, ok);
+    int total;
+    const int r = ng + block_prefix(ok, wsum, parity, total);
     if (ok) {
-      const int r = nv + __popc(bal & ((1u << lane) - 1u));
       A[r] = ea;
       B[r] = eb;
       SL[r] = m;
-    } else if (m < M) {
-      score[o] = 0.0f;
-      ok_out[o] = 0;
     }
-    nv += __popc(bal);
+    ng += total;
   }
-  if (nv == 0) return;
-  __syncwarp();  // the records are read back by other lanes
+  __syncthreads();  // the records are read by every warp; the zeros precede
 
-  // ---- pairs: the partners staged 32 at a time in shared memory
-  float4* TA = tiles[warp][0];
-  float4* TB = tiles[warp][1];
-  for (int q0 = 0; q0 < nv; q0 += 32) {
+  // pairs: a lane per own record, the partners broadcast 32 at a time
+  for (int q0 = warp * 32; q0 < ng; q0 += SEG_THREADS) {
     const int q = q0 + lane;
-    const bool act = q < nv;
+    const bool act = q < ng;
     const float4 b = B[act ? q : 0];
     Own w = own_slot(A[act ? q : 0], b, __float_as_int(b.y), lp);
-    for (int cb = 0; cb < nv; cb += 32) {
-      const int n = min(32, nv - cb);
-      __syncwarp();  // the previous tile is no longer read
-      if (lane < n) {
-        TA[lane] = A[cb + lane];
-        TB[lane] = B[cb + lane];
-      }
-      __syncwarp();
-      pair_step<0>(TA, TB, n, act, w, cos_lo, two_sig_a_sqr, min_similarity);
-    }
+    for (int cb = 0; cb < ng; cb += 32)
+      pair_step<0>(A + cb, B + cb, min(32, ng - cb), act, w, cos_lo,
+                   two_sig_a_sqr, min_similarity);
     w.total = add_rn(w.total, w.best);
     if (act) {
       score[o0 + SL[q]] = w.total;
       ok_out[o0 + SL[q]] = 1;
     }
   }
+  return true;
 }
+
+// A block per segment, its records in shared memory (room for cap); a
+// segment with more valid slots is flagged for score_overflow_kernel.
+__global__ void __launch_bounds__(SEG_THREADS) score_all_kernel(
+    const float* __restrict__ d_p1, const float* __restrict__ d_p2,
+    const uint8_t* __restrict__ valid, const float* __restrict__ ray1,
+    const float* __restrict__ ray2, const float* __restrict__ raym,
+    const float* __restrict__ C, const float* __restrict__ k_reg,
+    const float* __restrict__ tgt_C, const float* __restrict__ tgt_k, int S,
+    int M, int N, int knn, float two_sig_a_sqr, float min_similarity,
+    int check_orientation, float cos_lo, float lp, int cap,
+    int32_t* __restrict__ flagged, int* __restrict__ n_flagged,
+    float* __restrict__ score, uint8_t* __restrict__ ok_out) {
+  extern __shared__ float4 recs[];  // A [cap], B [cap], then SL [cap]
+  __shared__ int wsum[2][SEG_WARPS];
+  const int64_t vs = blockIdx.x;
+  const bool fits = score_segment(
+      vs, d_p1, d_p2, valid, ray1, ray2, raym, C, k_reg, tgt_C, tgt_k, S, M,
+      N, knn, two_sig_a_sqr, min_similarity, check_orientation, cos_lo, lp,
+      recs, recs + cap, reinterpret_cast<int32_t*>(recs + 2 * (size_t)cap),
+      cap, true, wsum, score, ok_out);
+  if (!fits && threadIdx.x == 0)
+    flagged[atomicAdd(n_flagged, 1)] = (int32_t)vs;
+}
+
+// Persistent blocks over the flagged segments (their count read on the
+// device), each with records for M slots in its region of a global
+// scratch; the zeros are score_all_kernel's.
+__global__ void __launch_bounds__(SEG_THREADS) score_overflow_kernel(
+    const float* __restrict__ d_p1, const float* __restrict__ d_p2,
+    const uint8_t* __restrict__ valid, const float* __restrict__ ray1,
+    const float* __restrict__ ray2, const float* __restrict__ raym,
+    const float* __restrict__ C, const float* __restrict__ k_reg,
+    const float* __restrict__ tgt_C, const float* __restrict__ tgt_k, int S,
+    int M, int N, int knn, float two_sig_a_sqr, float min_similarity,
+    int check_orientation, float cos_lo, float lp,
+    const int32_t* __restrict__ flagged, const int* __restrict__ n_flagged,
+    float4* __restrict__ rec_a, float4* __restrict__ rec_b,
+    int32_t* __restrict__ rec_slot, float* __restrict__ score,
+    uint8_t* __restrict__ ok_out) {
+  __shared__ int wsum[2][SEG_WARPS];
+  const int n = *n_flagged;
+  const int64_t base = (int64_t)blockIdx.x * M;
+  for (int i = blockIdx.x; i < n; i += gridDim.x) {
+    score_segment(flagged[i], d_p1, d_p2, valid, ray1, ray2, raym, C, k_reg,
+                  tgt_C, tgt_k, S, M, N, knn, two_sig_a_sqr, min_similarity,
+                  check_orientation, cos_lo, lp, rec_a + base, rec_b + base,
+                  rec_slot + base, M, false, wsum, score, ok_out);
+    __syncthreads();  // the records are refilled for the next segment
+  }
+}
+
+// Blocks of the overflow path.  Each holds records for M slots in the
+// global scratch (36 B a slot: 13.8 MB for all of them at M = 48,000), and
+// few segments pass the shared records (none on the all-matches block of
+// the 26 views), so a few blocks, not a full card.
+constexpr int OVERFLOW_BLOCKS = 8;
 
 }  // namespace
 
@@ -444,35 +578,51 @@ extern "C" int l3d_score_matches(
   return (int)cudaGetLastError();
 }
 
-// The general form's counting pass: counts[vs] = valid slots of segment vs.
-extern "C" int l3d_score_count_valid(const uint8_t* valid, int64_t VS, int M,
-                                     int32_t* counts, void* stream) {
-  if (M < 1) return (int)cudaErrorInvalidValue;
-  if (VS == 0) return 0;
-  const int64_t blocks = (VS * 32 + 255) / 256;
-  count_valid_kernel<<<(unsigned)blocks, 256, 0, (cudaStream_t)stream>>>(
-      valid, VS, M, counts);
-  return (int)cudaGetLastError();
-}
+// Blocks of the general form's overflow path; each needs records for M
+// slots (the scratch of l3d_score_matches_all).
+extern "C" int64_t l3d_score_overflow_blocks() { return OVERFLOW_BLOCKS; }
 
-// The general form: any M = N * knn; ``offsets`` the exclusive sum of the
-// counting pass, the records one per valid slot.
+// The general form: any M = N * knn; records for min(records, M) valid
+// slots a segment in shared memory; where that is below M, the segments
+// with more are listed in ``flagged`` (room for V * S) with their count in
+// ``n_flagged`` and finished by the overflow path behind it, whose records
+// (l3d_score_overflow_blocks() * M of each array) are ``rec_a``,
+// ``rec_b``, ``rec_slot``.
 extern "C" int l3d_score_matches_all(
     const float* d_p1, const float* d_p2, const uint8_t* valid,
     const float* ray1, const float* ray2, const float* raym, const float* C,
     const float* k_reg, const float* tgt_C, const float* tgt_k, int V, int S,
     int M, int N, int knn, float two_sig_a_sqr, float min_similarity,
-    int check_orientation, float cos_lo, float lp, const int64_t* offsets,
-    float4* rec_a, float4* rec_b, int32_t* rec_slot, float* score,
-    uint8_t* ok_out, void* stream) {
-  if (M < 1 || knn < 1 || M != N * knn) return (int)cudaErrorInvalidValue;
-  if (V == 0 || S == 0) return 0;
+    int check_orientation, float cos_lo, float lp, int records,
+    float4* rec_a, float4* rec_b, int32_t* rec_slot, int32_t* flagged,
+    int* n_flagged, float* score, uint8_t* ok_out, void* stream) {
+  if (M < 1 || knn < 1 || M != N * knn || records < 1 ||
+      records > RECORDS_MAX)
+    return (int)cudaErrorInvalidValue;
+  const int cap = records < M ? records : M;
+  const bool overflow = cap < M;
+  if (overflow && (rec_a == nullptr || rec_b == nullptr ||
+                   rec_slot == nullptr || flagged == nullptr ||
+                   n_flagged == nullptr))
+    return (int)cudaErrorInvalidValue;
   const int64_t VS = (int64_t)V * S;
-  const int64_t blocks = (VS + ALL_WARPS - 1) / ALL_WARPS;
-  score_all_kernel<<<(unsigned)blocks, 32 * ALL_WARPS, 0,
-                     (cudaStream_t)stream>>>(
-      d_p1, d_p2, valid, ray1, ray2, raym, C, k_reg, tgt_C, tgt_k, VS, S, M,
-      N, knn, two_sig_a_sqr, min_similarity, check_orientation, cos_lo, lp,
-      offsets, rec_a, rec_b, rec_slot, score, ok_out);
+  if (VS == 0) return 0;
+  if (VS >= (1ll << 31)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (overflow) cudaMemsetAsync(n_flagged, 0, sizeof(int), st);
+  const size_t smem = (size_t)cap * (2 * sizeof(float4) + sizeof(int32_t));
+  if (smem > SMEM)
+    cudaFuncSetAttribute(score_all_kernel,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)smem);
+  score_all_kernel<<<(unsigned)VS, SEG_THREADS, smem, st>>>(
+      d_p1, d_p2, valid, ray1, ray2, raym, C, k_reg, tgt_C, tgt_k, S, M, N,
+      knn, two_sig_a_sqr, min_similarity, check_orientation, cos_lo, lp, cap,
+      flagged, n_flagged, score, ok_out);
+  if (overflow)
+    score_overflow_kernel<<<OVERFLOW_BLOCKS, SEG_THREADS, 0, st>>>(
+        d_p1, d_p2, valid, ray1, ray2, raym, C, k_reg, tgt_C, tgt_k, S, M,
+        N, knn, two_sig_a_sqr, min_similarity, check_orientation, cos_lo, lp,
+        flagged, n_flagged, rec_a, rec_b, rec_slot, score, ok_out);
   return (int)cudaGetLastError();
 }

@@ -154,9 +154,14 @@ class AffinityDense(NamedTuple):
 def affinity_dense(fm: FilteredMatches, tgt_seg, neighbor_ids, k_reg,
                    median_depth, med_scene_depth_lines, two_sig_a_sqr: float,
                    min_affinity: float = 0.5, tgt_est=None, k_table=None,
-                   median_depth_table=None) -> AffinityDense:
+                   median_depth_table=None, use_pallas: bool = False,
+                   pallas_interpret: bool = False) -> AffinityDense:
     """Similarity of each (segment-estimate, match-target-estimate) pair
     (reference: line3D.cc:1449-1553, called from 1873-1899).
+
+    ``use_pallas`` and ``pallas_interpret`` are the JAX package's switches,
+    accepted and ignored: kernel K3 runs exactly when the tensors are on a
+    CUDA device.
 
     ``med_scene_depth_lines`` is a 0-dim tensor or a float; <= EPS disables
     the scene-level depth cutoff.  Where the view axis is sharded, ``fm``,

@@ -25,10 +25,13 @@ def dot3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1] + a[..., 2] * b[..., 2]
 
 
-def normalize(v: torch.Tensor) -> torch.Tensor:
-    """v / max(|v|, EPS) over the trailing axis of 3."""
-    n = torch.sqrt(dot3(v, v))
-    return v / torch.clamp_min(n, EPS)[..., None]
+def normalize(v: torch.Tensor, axis: int = -1) -> torch.Tensor:
+    """v / max(|v|, EPS) along ``axis``; an axis of length 3 takes the
+    fixed-order :func:`dot3`."""
+    w = torch.movedim(v, axis, -1)
+    n = (torch.sqrt(dot3(w, w)) if w.shape[-1] == 3
+         else torch.linalg.vector_norm(w, dim=-1))
+    return torch.movedim(w / torch.clamp_min(n, EPS)[..., None], -1, axis)
 
 
 def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

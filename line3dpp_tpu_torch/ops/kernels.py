@@ -52,18 +52,21 @@ _SIGNATURES = {
     # 13 inputs (the first the (V, S, 4) target table), P S knn,
     # epipolar_overlap, 6 outputs, stream
     "l3d_match_pairs": [_P] * 13 + [_I] * 3 + [_F] + [_P] * 6 + [_P],
-    # the same, with the key scratch before the outputs (the general form)
-    "l3d_match_pairs_all": [_P] * 13 + [_I] * 3 + [_F] + [_P] * 7 + [_P],
+    # the same, then list_len, the overflow path's key scratch, flagged
+    # rows and their count, 6 outputs and the validity, stream (the
+    # general form)
+    "l3d_match_pairs_all": ([_P] * 13 + [_I] * 3 + [_F] + [_I] + [_P] * 3
+                            + [_P] * 7 + [_P]),
     # 10 inputs, V S M N knn, two_sig_a_sqr min_similarity, orientation,
     # the pre-test's cos_lo lp, 2 outputs, stream
     "l3d_score_matches": ([_P] * 10 + [_I] * 5 + [_F] * 2 + [_I] + [_F] * 2
                           + [_P] * 2 + [_P]),
-    # the same inputs and options, the per-segment counts and offsets, the
-    # record scratch, 2 outputs, stream (the general form)
+    # the same inputs and options, records a segment, the overflow path's
+    # record scratch, flagged segments and their count, 2 outputs, stream
+    # (the general form)
     "l3d_score_matches_all": ([_P] * 10 + [_I] * 5 + [_F] * 2 + [_I]
-                              + [_F] * 2 + [_P] * 4 + [_P] * 2 + [_P]),
-    # valid V*S M, counts, stream (the general form's counting pass)
-    "l3d_score_count_valid": [_P] + [_L, _I] + [_P] + [_P],
+                              + [_F] * 2 + [_I] + [_P] * 5 + [_P] * 2
+                              + [_P]),
     # 4 inputs, V_tab S V M N knn, 2 outputs, stream
     "l3d_gather_target_estimates": [_P] * 4 + [_I] * 6 + [_P] * 2 + [_P],
     # angle active, hp wp th tw ph pw, tol, labels unconverged, stream
@@ -93,7 +96,8 @@ _SIGNATURES = {
     "l3d_extents": [_P] * 6 + [_I] * 2 + [_P] + [_P],
 }
 # entry points that return a size, not an error: arguments, result
-_QUERIES = {"l3d_match_all_scratch": ([_I], _L)}
+_QUERIES = {"l3d_match_all_scratch": ([_I], _L),
+            "l3d_score_overflow_blocks": ([], _L)}
 
 
 def reset_launches() -> None:

@@ -812,23 +812,28 @@ def _prepare(image: np.ndarray, max_width: int, device: torch.device):
 
 
 def detect_batch(images: Sequence[np.ndarray], max_width: int = -1,
-                 rect_improve: bool = False, rescue: bool = False,
-                 n_rounds: int = 3, seed_gate: bool = False,
-                 seed_center: bool = False, side_split: bool = False,
-                 refine_iters: int = 2,
+                 depth: int = 3, rect_improve: bool = False,
+                 rescue: bool = False, n_rounds: int = 3,
+                 seed_gate: bool = False, seed_center: bool = False,
+                 side_split: bool = False, refine_iters: int = 2, *,
                  device: str | torch.device | None = None,
                  stats: list | None = None) -> list[np.ndarray]:
     """Detect 2D line segments in each image; returns a list of (n, 4)
     float64 arrays [x1 y1 x2 y2] in original image coordinates.
 
-    The images run one after another on the current stream, each with a
-    few host syncs for its exact sizes (active pixels, components, border
-    links, survivors).  ``rescue`` runs the rescue cascade on the
+    The parameters are the JAX package's, in its order.  The images run
+    one after another on the current stream, each with a few host syncs
+    for its exact sizes (active pixels, components, border links,
+    survivors).  ``depth`` (>= 1), which bounds the programs in flight in
+    the JAX package, has no effect on results there and none here.
+    ``rescue`` runs the rescue cascade on the
     rectangles that fail the NFA; ``seed_gate``, ``seed_center`` and
     ``side_split`` anchor the first fit and the density refine on each
     component's strongest pixel; ``rect_improve`` is the older width-retry
     knob.  When ``stats`` is a list, each image's ``_lsd_core`` stats are
     appended to it."""
+    if depth < 1:
+        raise ValueError(f"depth must be >= 1, got {depth}")
     device = _default_device(device)
     out = []
     for image in images:

@@ -31,6 +31,9 @@ from . import kernels
 EPS = 1e-12
 KNN_MAX = 16          # largest k of K1's insertion form (csrc/matching.cu
 #                       KMAX); larger k runs its general form
+LIST_LEN = 96         # matches a thread of K1's general form keeps in shared
+#                       memory; k > LIST_LEN sends longer rows to its
+#                       overflow path
 # kernel K1's pre-test (csrc/matching.cu pretest_keeps): the relative error
 # bound of its approximate quotients against the exact ones, and the margin
 # it widens them by
@@ -223,12 +226,16 @@ def match_pairs_cuda(t: PairTables, epipolar_overlap: float, knn: int,
     """Kernel K1 on CUDA tensors; outputs in (P, S, k).  k <= KNN_MAX runs
     the insertion form, larger k (any k <= S) the general form;
     ``general=True`` runs the general form at any k (what the tests hold
-    the two forms against each other with)."""
+    the two forms against each other with).  The general form keeps
+    ``LIST_LEN`` matches a thread (1 to 128, read at each call): a row
+    with more, at k above it, takes the overflow path."""
     dev = t.segments.device
     V, S, _ = t.segments.shape
     P = t.src_idx.shape[0]
     if not 1 <= knn <= S:
         raise ValueError(f"kernel K1 takes 1 <= knn <= S = {S}, got {knn}")
+    if P * S >= 2**31:
+        raise ValueError(f"kernel K1 takes P * S < 2^31 rows, got {P * S}")
     if general is None:
         general = knn > KNN_MAX
     f32 = torch.float32
@@ -257,14 +264,23 @@ def match_pairs_cuda(t: PairTables, epipolar_overlap: float, knn: int,
     outs = (p(idx), p(ov), p(dp1), p(dp2), p(dq1), p(dq2),
             kernels.stream(dev))
     if general:
-        # each resident warp's key list past its shared-memory part
-        n_keys = kernels.query("l3d_match_all_scratch", S)
+        # the overflow path: the flagged rows and their count, and each
+        # resident warp's key list past its shared-memory part
+        list_len = LIST_LEN
+        over = knn > list_len
+        flagged = torch.empty(P * S if over else 1, dtype=torch.int32,
+                              device=dev)
+        n_flagged = torch.empty(1, dtype=torch.int32, device=dev)
+        n_keys = kernels.query("l3d_match_all_scratch", S) if over else 0
         scratch = torch.empty(max(n_keys, 1), dtype=torch.int64, device=dev)
-        kernels.launch("l3d_match_pairs_all", *tables, p(scratch), *outs)
+        valid = torch.empty((P, S, knn), dtype=torch.bool, device=dev)
+        kernels.launch("l3d_match_pairs_all", *tables, int(list_len),
+                       p(scratch), p(flagged), p(n_flagged), *outs[:-1],
+                       p(valid), outs[-1])
         kernels.LAUNCHES["match_pairs_all"] += 1
-    else:
-        kernels.launch("l3d_match_pairs", *tables, *outs)
-        kernels.LAUNCHES["match_pairs"] += 1
+        return PairMatches(idx, ov, dp1, dp2, dq1, dq2, valid)
+    kernels.launch("l3d_match_pairs", *tables, *outs)
+    kernels.LAUNCHES["match_pairs"] += 1
     return PairMatches(idx, ov, dp1, dp2, dq1, dq2, ov > 0.0)
 
 

@@ -44,6 +44,9 @@ PRETEST_ANGLE_ABS = 2.0**-10
 PRETEST_DOT_ABS = 2.0**-18
 PRETEST_MIN_SIM = 2.0**-100
 M_SMEM = 1024   # largest M of K2's first form (csrc/scoring.cu M_SMEM)
+RECORDS = 768   # valid slots a segment that K2's general form keeps in
+#                 shared memory (at most 6144); a segment with more takes
+#                 its overflow path
 PLAIN_PLANE = 1 << 24   # elements of one pairwise plane of the plain version
 
 
@@ -209,10 +212,11 @@ def score_matches_cuda(r1, r2, rmid, C, k_reg, tgt_C, tgt_k, d_p1, d_p2,
                        pretest: bool = True,
                        general: bool | None = None) -> ScoredMatches:
     """Kernel K2 on CUDA tensors.  M <= ``M_SMEM`` runs the first form,
-    which holds a segment's valid slots in shared memory; larger M (any M
-    = N * knn) the general form: a counting pass, then the valid slots in a
-    global scratch at per-segment offsets.  ``general=True`` runs the
-    general form at any M.  ``pretest=False`` gives the kernel the
+    which holds a segment's valid slots in shared memory sized by M;
+    larger M (any M = N * knn) the general form, which holds up to
+    ``RECORDS`` of them a segment there (read at each call) and sends a
+    segment with more to its overflow path (no host sync either way).  ``general=True`` runs
+    the general form at any M.  ``pretest=False`` gives the kernel the
     thresholds that keep every pair, so that each runs the exact path (what
     the tests hold the pre-test against)."""
     dev = d_p1.device
@@ -221,6 +225,8 @@ def score_matches_cuda(r1, r2, rmid, C, k_reg, tgt_C, tgt_k, d_p1, d_p2,
     if M != N * knn:
         raise ValueError(f"kernel K2 takes M = N*knn, got M={M}, N={N}, "
                          f"knn={knn}")
+    if V * S >= 2**31:
+        raise ValueError(f"kernel K2 takes V * S < 2^31, got {V * S}")
     if general is None:
         general = M > M_SMEM
     f32 = torch.float32
@@ -242,19 +248,20 @@ def score_matches_cuda(r1, r2, rmid, C, k_reg, tgt_C, tgt_k, d_p1, d_p2,
               float(two_sig_a_sqr), float(min_similarity),
               int(check_orientation), cos_lo, lp)
     if general:
-        # the counting pass, then each segment's records at its offset
-        counts = torch.empty(V * S, dtype=torch.int32, device=dev)
-        kernels.launch("l3d_score_count_valid", p(valid), V * S, M,
-                       p(counts), kernels.stream(dev))
-        ends = torch.cumsum(counts, 0, dtype=torch.int64)
-        total = int(ends[-1]) if V * S else 0
-        offsets = (ends - counts).contiguous()
-        rec_a, rec_b = (torch.empty((max(total, 1), 4), dtype=f32,
-                                    device=dev) for _ in range(2))
-        rec_slot = torch.empty(max(total, 1), dtype=torch.int32, device=dev)
-        kernels.launch("l3d_score_matches_all", *inputs, p(offsets),
-                       p(rec_a), p(rec_b), p(rec_slot), p(score), p(ok),
-                       kernels.stream(dev))
+        # the overflow path: the flagged segments and their count, and
+        # records for M slots for each of its blocks
+        records = RECORDS
+        over = min(records, M) < M
+        n = kernels.query("l3d_score_overflow_blocks") * M if over else 1
+        rec_a, rec_b = (torch.empty((n, 4), dtype=f32, device=dev)
+                        for _ in range(2))
+        rec_slot = torch.empty(n, dtype=torch.int32, device=dev)
+        flagged = torch.empty(V * S if over else 1, dtype=torch.int32,
+                              device=dev)
+        n_flagged = torch.empty(1, dtype=torch.int32, device=dev)
+        kernels.launch("l3d_score_matches_all", *inputs, int(records),
+                       p(rec_a), p(rec_b), p(rec_slot), p(flagged),
+                       p(n_flagged), p(score), p(ok), kernels.stream(dev))
         kernels.LAUNCHES["score_matches_all"] += 1
     else:
         kernels.launch("l3d_score_matches", *inputs, p(score), p(ok),

@@ -31,10 +31,14 @@ from ..models.step import (EPS, StepOutputs, _match_score_filter,
                            _median_positive, step_outputs)
 from ..ops import affinity as affinity_ops
 
+# the JAX package's options; ``use_pallas`` and ``pallas_interpret`` are
+# accepted and ignored (the kernels run exactly when the tensors are on a
+# CUDA device)
 DEFAULTS = dict(epipolar_overlap=0.25, knn=10, two_sig_a_sqr=200.0,
                 min_similarity=0.5, check_orientation=True,
                 min_best_score=0.75, min_best_score_perc=0.10,
-                min_affinity=0.5, pair_chunk=8)
+                min_affinity=0.5, pair_chunk=8, use_pallas=False,
+                pallas_interpret=False)
 
 
 def init_group(rank: int, world: int, address: str | None = None,
@@ -69,8 +73,8 @@ def _gather(x: torch.Tensor, world: int, group) -> torch.Tensor:
 def _local_step(seg_local, mask_local, RtKinv, C, k_reg, nbr_local, F_local,
                 pv_local, *, group, epipolar_overlap, knn, two_sig_a_sqr,
                 min_similarity, check_orientation, min_best_score,
-                min_best_score_perc, min_affinity,
-                pair_chunk) -> StepOutputs:
+                min_best_score_perc, min_affinity, pair_chunk, use_pallas,
+                pallas_interpret) -> StepOutputs:
     world = dist.get_world_size(group)
     rank = dist.get_rank(group)
     V = C.shape[0]

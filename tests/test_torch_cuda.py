@@ -281,6 +281,53 @@ def test_k1_general_form_past_its_shared_memory(cuda):
         assert torch.equal(getattr(got, name), getattr(want, name)), name
 
 
+@pytest.mark.parametrize("knn,list_len", [(40, 1), (40, 8), (700, 2),
+                                           (700, 16)])
+def test_k1_general_form_overflow_path(cuda, monkeypatch, knn, list_len):
+    """Lists shorter than the rows (``matching.LIST_LEN`` set to
+    ``list_len``) send rows past them to the overflow path (a warp per
+    flagged row): the same bits as the plain version."""
+    inp = synthetic_step_inputs(seed=1, V=6, S=700, N=4, n_lines=600)
+    inp["pair_valid"][2, 1] = False
+    t = _tables(inp, cuda)
+    kernels.reset_launches()
+    monkeypatch.setattr(matching, "LIST_LEN", list_len)
+    got = matching.match_pairs_cuda(t, 0.25, knn)
+    assert kernels.LAUNCHES["match_pairs_all"] == 1
+    want = matching.match_pairs_plain(t, 0.25, knn, chunk=4)
+    rows = want.valid.sum(-1)
+    assert int((rows > list_len).sum()) > 100
+    assert int((rows <= list_len).sum()) > 100
+    for name in got._fields:
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+
+
+@pytest.mark.parametrize("records,shape", [
+    (1, dict(V=2, S=8, N=4, k=300)), (40, dict(V=2, S=8, N=4, k=300)),
+    (2255, dict(V=1, S=3, N=3, k=1000)), (16, dict(V=2, S=6, N=4, k=10))])
+def test_k2_general_form_overflow_path(cuda, monkeypatch, records, shape):
+    """Segments with more valid slots than the records
+    (``scoring.RECORDS`` set to ``records``) take the overflow path (their
+    records in a global scratch): the same bits as with room for every
+    slot, as without the pre-test, and as the plain version."""
+    args, knn = _k2_case(cuda, **shape)
+    kw = dict(knn=knn, two_sig_a_sqr=200.0, min_similarity=0.5)
+    counts = args[9].sum(-1)
+    assert int((counts > records).sum()) > 0
+    assert int(((counts > 0) & (counts <= records)).sum()) > 0
+    monkeypatch.setattr(scoring, "RECORDS", 6144)
+    roomy = scoring.score_matches_cuda(*args, general=True, **kw)
+    monkeypatch.setattr(scoring, "RECORDS", records)
+    got = scoring.score_matches_cuda(*args, general=True, **kw)
+    every = scoring.score_matches_cuda(*args, general=True, pretest=False,
+                                       **kw)
+    want = scoring.score_matches_plain(*args, chunk=64, **kw)
+    for other in (roomy, every, want):
+        assert torch.equal(got.score3d, other.score3d)
+        assert torch.equal(got.valid, other.valid)
+    assert int((got.score3d > 0).sum()) > 50
+
+
 @pytest.mark.parametrize("knn", [1, 10, 16])
 def test_k1_forms_agree_and_keep_the_prefix(cuda, knn):
     """Both forms at the same k give the same bits; the general form at k =

@@ -44,6 +44,21 @@ the CPU.
   once, at its place in list order, and the count is right, for empty
   lists, lists below one tile and of whole tiles, all survivors or none,
   several tile shapes and any mix of posted prefixes.
+- K1's general form (``csrc/matching.cu`` ``match_list_kernel``) keeps each
+  source's matches in a bounded sorted list: ``topk_split`` below builds
+  the rows from such lists (the top-k prune for k <= L, every key and the
+  overflow flag for k > L, the flagged rows from the overflow path); here
+  they equal the plain matcher's for k in {17, 20, 64, S} and two list
+  lengths, and exactly the rows longer than the list are flagged.
+- K2's general form (``csrc/scoring.cu`` ``score_segment``) lists a
+  segment's valid slots from 16-byte chunks of its validity row, ranks
+  them by a block prefix and compacts those that pass the gate in place:
+  ``setup_split`` below is that walk thread by thread; here every slot's
+  zeros are written once with aligned 16-byte stores, every valid slot is
+  set up once, in ascending order, the records are the passing slots in
+  order, and the overflow is taken exactly where the count passes the
+  records, on empty rows, whole chunks, ragged rows and rows around the
+  records, at four alignments.
 """
 
 import importlib.util
@@ -1016,3 +1031,229 @@ def test_k10_span_follows_the_list_length(sms):
     assert lsd_fit.count_span(45347, H100_SMS) == short
     for span in (short, long_):
         assert span % (32 * 4) == 0 and span // 32 in (K10_ITEMS, 8)
+
+
+# ---- K1's general form: per-thread bounded lists
+
+def _match_key(overlap: float, tc: int) -> int:
+    bits = int(np.float32(overlap).view(np.uint32))
+    return ((~bits & 0xFFFFFFFF) << 32) | tc
+
+
+def topk_split(t, eo: float, knn: int, list_len: int) -> dict:
+    """K1's general form (``csrc/matching.cu`` ``match_list_kernel``), row
+    by row: the valid candidates in ascending target order, each kept in a
+    list of L = min(knn, list_len); knn <= L: the exact top-k, sorted (a
+    candidate must beat the k-th overlap, a full list drops its last); knn
+    > L: every passing target in target order, a row with more than L
+    flagged, and the keys ranked when the row is written.  The flagged
+    rows take the overflow path (here: the plain rows).  Returns
+    the assembled ``tgt_seg``/``overlap`` (P, S, knn), the flagged rows and
+    each row's candidate count."""
+    P, S = t.num_src.shape
+    L = min(knn, list_len)
+    bounded = knn <= L
+    every = matching.match_pairs_plain(t, eo, S, chunk=4)
+    want = matching.match_pairs_plain(t, eo, knn, chunk=4)
+    idx = torch.zeros((P, S, knn), dtype=torch.int32)
+    ov = torch.zeros((P, S, knn))
+    flagged, counts = [], every.valid.sum(-1)
+    tg, ovs, vs = (every.tgt_seg.numpy(), every.overlap.numpy(),
+                   every.valid.numpy())
+    for p in range(P):
+        for s in range(S):
+            n = int(counts[p, s])
+            order = np.argsort(tg[p, s, :n], kind="stable")
+            keys, thr, over = [], np.float32(0.0), False
+            for j in order:             # the scan's ascending targets
+                tc, o = int(tg[p, s, j]), ovs[p, s, j]
+                assert vs[p, s, j] and o > eo
+                if not o > thr:
+                    continue
+                if not bounded:
+                    if len(keys) == L:
+                        over = True
+                        break
+                    keys.append(_match_key(o, tc))
+                    continue
+                key = _match_key(o, tc)
+                at = len(keys) if len(keys) < L else L - 1
+                while at > 0 and keys[at - 1] > key:
+                    at -= 1
+                keys = keys[:at] + [key] + keys[at:]
+                keys = keys[:L]
+                if bounded and len(keys) == L:
+                    thr = np.float32(np.uint32(~(keys[-1] >> 32)
+                                               & 0xFFFFFFFF).view(
+                                                   np.float32))
+            if over:
+                flagged.append(p * S + s)
+                idx[p, s] = want.tgt_seg[p, s]
+                ov[p, s] = want.overlap[p, s]
+                continue
+            # a key's slot: its rank among the row's keys
+            ranks = [sum(q < key for q in keys) for key in keys]
+            assert bounded or sorted(ranks) == list(range(len(keys)))
+            for j, key in zip(ranks, keys):
+                idx[p, s, j] = key & 0xFFFFFFFF
+                ov[p, s, j] = float(np.uint32(~(key >> 32) & 0xFFFFFFFF)
+                                    .view(np.float32))
+    return dict(tgt_seg=idx, overlap=ov, flagged=flagged, counts=counts,
+                want=want)
+
+
+def _topk_scene(name):
+    if name == "one_line":
+        # every segment a copy of one line, half of them exact: rows of
+        # ~S matches with exact ties, where the top-k's prune bites
+        inp = synthetic_step_inputs(seed=5, V=3, S=90, N=2, n_lines=90)
+        segs = inp["segments"]
+        noise = np.random.default_rng(5).normal(0.0, 0.3, segs.shape)
+        noise[:, ::2] = 0.0
+        segs[:] = segs[:, :1] + noise.astype(np.float32)
+        inp["seg_mask"][:] = True
+        inp["seg_mask"][1, 7] = False
+        return inp
+    return _scene(name)
+
+
+@pytest.mark.parametrize("list_len", [4, 32])
+@pytest.mark.parametrize("knn", [17, 20, 64, "S"])
+@pytest.mark.parametrize("scene", ["synthetic1", "bundled", "one_line"])
+def test_k1_topk_split_equals_plain(scene, knn, list_len):
+    t = _tables(_topk_scene(scene))
+    S = t.mask.shape[1]
+    knn = S if knn == "S" else knn
+    split = topk_split(t, 0.25, knn, list_len)
+    want = split["want"]
+    assert torch.equal(split["tgt_seg"], want.tgt_seg)
+    assert torch.equal(split["overlap"], want.overlap)
+    over = torch.nonzero(split["counts"].reshape(-1) > list_len)[:, 0]
+    if knn <= list_len:
+        assert split["flagged"] == []
+    else:
+        assert split["flagged"] == over.tolist()
+    if scene == "one_line":
+        assert int(split["counts"].max()) > 64
+        assert len(over) > 0
+
+
+# ---- K2's general form: the set-up over 16-byte validity chunks
+
+def setup_split(valid_row: np.ndarray, addr: int, cap: int,
+                gate: np.ndarray, threads: int = 128,
+                unroll: int = 2) -> dict:
+    """K2's general form (``csrc/scoring.cu`` ``score_segment``) on one
+    row of M bools whose first byte lies at ``addr`` (mod 16), thread by
+    thread of its block: the zeros of the row's score (4 B) and validity
+    (1 B) arrays by ``zero_row``, the valid slots listed by ``list_valid``
+    (16 bytes a thread where aligned, a byte a thread at the ends, ranks by
+    the block's prefix over the threads' counts, ``unroll`` chunks in
+    flight), overflow where the count passes ``cap``, then the set-up of
+    the listed slots a slot a thread with those that pass ``gate`` moved
+    down in place.  Returns the writes of each slot's zeros, the listed
+    count, the set-up calls, the records and whether it overflowed."""
+    M = len(valid_row)
+    out = dict(zeros_f32=np.zeros(M, int), zeros_u8=np.zeros(M, int),
+               setups=[], over=False)
+
+    def zero_row(counts, size):
+        per = 16 // size
+        head = min(((16 - (addr * size) % 16) % 16) // size, M)
+        counts[:head] += 1
+        body = (M - head) // per
+        for i in range(body):
+            assert (addr * size + (head + i * per) * size) % 16 == 0
+            counts[head + i * per: head + (i + 1) * per] += 1
+        counts[head + body * per:] += 1
+
+    zero_row(out["zeros_f32"], 4)
+    zero_row(out["zeros_u8"], 1)
+    SL = [None] * cap
+    head = min((16 - addr % 16) % 16, M)
+    body = (M - head) // 16
+    nv = 0
+
+    def step(bits, m0):
+        """One block step: thread t's set slots m0[t] + bits[t]."""
+        nonlocal nv
+        cnt = [len(b) for b in bits]
+        for t in range(threads):
+            r = nv + sum(cnt[:t])
+            for b in bits[t]:
+                if r < cap:
+                    SL[r] = m0[t] + int(b)
+                r += 1
+        nv += sum(cnt)
+
+    def byte_step(lo, hi):
+        step([[0] if lo + t < hi and valid_row[lo + t] else []
+              for t in range(threads)], [lo + t for t in range(threads)])
+
+    byte_step(0, head)
+    for c0 in range(0, body, threads * unroll):
+        for u in range(unroll):
+            chunks = [c0 + u * threads + t for t in range(threads)]
+            step([np.flatnonzero(valid_row[head + c * 16:head + c * 16 + 16])
+                  if c < body else [] for c in chunks],
+                 [head + c * 16 for c in chunks])
+    byte_step(head + body * 16, M)
+    out["listed"] = nv
+    if nv > cap:
+        out["over"] = True
+        return out
+    ng = 0
+    for i0 in range(0, nv, threads):
+        ms = SL[i0:min(i0 + threads, nv)]  # every thread reads, then writes
+        out["setups"] += ms
+        ok = [bool(gate[m]) for m in ms]
+        for t, m in enumerate(ms):
+            if ok[t]:
+                r = ng + sum(ok[:t])
+                assert r <= i0 + t            # only slots already read
+                SL[r] = m
+        ng += sum(ok)
+    out["records"] = SL[:ng]
+    return out
+
+
+def _setup_row(name, rng):
+    M = {"empty": 48, "full_chunks": 64, "ragged": 1000, "sparse": 3000,
+         "dense": 777, "one": 5}[name]
+    p = {"empty": 0.0, "full_chunks": 1.0, "ragged": 0.1, "sparse": 0.005,
+         "dense": 0.6, "one": 0.5}[name]
+    return rng.uniform(size=M) < p
+
+
+@pytest.mark.parametrize("addr", [0, 1, 4, 15])
+@pytest.mark.parametrize("cap", [1, 40, 512])
+@pytest.mark.parametrize("name", ["empty", "full_chunks", "ragged",
+                                  "sparse", "dense", "one"])
+def test_k2_setup_split_lists_each_valid_slot_once(name, cap, addr):
+    rng = np.random.default_rng(len(name) * 7 + cap + addr)
+    row = _setup_row(name, rng)
+    gate = rng.uniform(size=len(row)) < 0.7
+    split = setup_split(row, addr, cap, gate)
+    valid = np.flatnonzero(row)
+    assert (split["zeros_f32"] == 1).all() and (split["zeros_u8"] == 1).all()
+    assert split["listed"] == len(valid)
+    assert split["over"] == (len(valid) > cap)
+    if split["over"]:
+        assert split["setups"] == []
+        return
+    assert split["setups"] == valid.tolist()        # once each, ascending
+    assert split["records"] == [m for m in valid if gate[m]]
+
+
+def test_k2_setup_split_rows_across_the_records():
+    """Rows with cap - 1, cap and cap + 1 valid slots around the default
+    records (``scoring.RECORDS``), at the all-matches block's M."""
+    rng = np.random.default_rng(3)
+    cap = scoring.RECORDS
+    for n in (cap - 1, cap, cap + 1):
+        row = np.zeros(48000, bool)
+        row[rng.choice(48000, n, replace=False)] = True
+        split = setup_split(row, 0, cap, np.ones(48000, bool))
+        assert split["over"] == (n > cap) and split["listed"] == n
+        if n <= cap:
+            assert split["records"] == np.flatnonzero(row).tolist()

@@ -117,7 +117,7 @@ def test_shard_inputs_needs_a_divisible_view_count():
     for i in (2, 3, 4):
         assert all(p[i] is host[i] for p in parts)
     with pytest.raises(TypeError, match="unknown"):
-        sharded.sharded_forward_step(use_pallas=True)
+        sharded.sharded_forward_step(not_an_option=True)
 
 
 def test_single_process_step_against_jax():
