@@ -46,10 +46,10 @@
    records, the segments past them and the pre-test survivors counted for
    its bound (``sparse_pretest_counts``).  Then items 14 and 15 through the entry
    points (``item14_15_phase``): the 26 views at ``view_block`` 4 and 13
-   (the fused TXT byte for byte, K1 and K2 once a block, no K3), the JAX
-   package's 104-view scene (``build_scale_scene``, a copy of
-   ``tools/bench_scale.py``'s) fused and at ``view_block=26`` (the same
-   TXT), all matches (``knn=0``: auto-blocked at 3 with the JAX package's
+   (the fused TXT byte for byte, K1 and K2 once a block, no K3), the
+   104-view scene of ``tools/bench_scale.py`` (the port's
+   ``tools.bench_scale.build_scene``) fused and at ``view_block=26`` (the
+   same TXT), all matches (``knn=0``: auto-blocked at 3 with the JAX package's
    printed line, K1's and K2's general forms once a block), ``knn=20``
    fused, and the view-sharded step over NCCL at world size 1 against
    ``forward_step`` bit for bit (``sharded_world1``).
@@ -91,10 +91,27 @@
    then view 0 with the ``rect_improve`` knob alone, the one path of K10's
    4-band form, with the counters reset and read around it
    (``detect_rect_improve``).
-5. Prints one ``{"undistort": ...}`` line, one ``{"item11_13": ...}`` line
+5. The port's drivers (``drivers_phase``), each with the launch counters
+   reset just before and read just after: ``bench.device_step_bench`` at
+   ``bench.py``'s size (26 views x 3000 segments x 10 neighbours, k = 10;
+   three timed runs, each equal to the warm-up run bit for bit, K1, K2
+   and K3 once a run), ``bench.images_e2e`` on the 10 facade views (the
+   images phase's detections bit for bit and its detection launches),
+   ``tools.bench_scale.main`` at its defaults (104 views, ``knn=10``,
+   ``view_block=26``: the 104-view blocked run's lines), the two facade
+   sweeps of ``tools.validate_scene2`` and ``validate_scene2_anchor`` on
+   the same views (the ``(0.0, ordered)`` configuration's TXT byte for
+   byte the images phase's), the eight configurations of both sweeps from
+   JAX's facade detections against
+   ``tests/data/torch_scene2_sweep_jax_reference.npz`` (written by
+   ``tests/make_torch_scene2_sweep_reference.py`` with the JAX package on
+   the CPU; ``SAME_*``, ``BUNDLED_SAME_F1`` with bundling), and
+   ``tools.drive_synthetic`` (12 lines, recall and precision 1.0).
+6. Prints one ``{"undistort": ...}`` line, one ``{"item11_13": ...}`` line
    (the CLI's, the COLMAP phase's and the item-13 phases' times), one
    ``{"item14_15": ...}`` line (the blocked, 104-view, all-matches, knn=20
-   and sharded phases), one ``{"facade_rounds": ...}``
+   and sharded phases), one ``{"drivers": ...}`` line (the drivers'
+   results and times), one ``{"facade_rounds": ...}``
    line (K6 with the map and K9's
    consume form on facade view 0's rounds, beside K5 + K6 and K9 with the
    torch tail they replace), one ``{"full_size": ...}`` line (the detection
@@ -145,6 +162,8 @@ COLMAP_NPZ = os.path.join(REPO, "tests", "data",
                           "torch_colmap_26_jax_reference.npz")
 FEATURES_NPZ = os.path.join(REPO, "tests", "data",
                             "torch_features_jax_reference.npz")
+SWEEP_NPZ = os.path.join(REPO, "tests", "data",
+                         "torch_scene2_sweep_jax_reference.npz")
 # lines against a JAX reference from the same segments (the main path's
 # bounds): the count within 1% (at least one line), count_f1 at 1% scene
 # scale
@@ -1782,10 +1801,10 @@ def cli_phase(images, cams, gt, ref, seg_views, geo_lines, dev) -> dict:
     return out
 
 
-def held_lines(pred, ref_lines, what: str) -> float:
+def held_lines(pred, ref_lines, what: str, min_f1: float = SAME_F1) -> float:
     """Lines against a JAX reference from the same segments: the count
     within ``SAME_COUNT_REL`` (at least one line) and count_f1 >=
-    ``SAME_F1`` at 1% of the reference's scene scale; returns count_f1."""
+    ``min_f1`` at 1% of the reference's scene scale; returns count_f1."""
     from line3dpp_tpu_torch.utils import golden
 
     tol = 0.01 * golden.scene_scale(np.concatenate(ref_lines))
@@ -1793,7 +1812,7 @@ def held_lines(pred, ref_lines, what: str) -> float:
     print(f"{what}: {len(pred)} lines (JAX {len(ref_lines)}), count_f1 "
           f"{f1:.5f}", flush=True)
     check(abs(len(pred) - len(ref_lines))
-          <= max(1, SAME_COUNT_REL * len(ref_lines)) and f1 >= SAME_F1,
+          <= max(1, SAME_COUNT_REL * len(ref_lines)) and f1 >= min_f1,
           f"{what}: the lines differ from the JAX reference's")
     check(all(np.isfinite(p).all() for p in pred), f"{what}: non-finite")
     return f1
@@ -2393,10 +2412,13 @@ def general_kernel_checks(inp, cfg, dev) -> tuple[list, dict]:
     return [row20, row1, row2], n
 
 
-def txt_bytes(pipe) -> bytes:
+def txt_bytes(lines) -> bytes:
+    """The TXT that ``save_txt`` writes for ``lines``."""
+    from line3dpp_tpu_torch.utils import writers
+
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "lines.txt")
-        pipe.save_txt(path)
+        writers.save_txt(path, lines)
         with open(path, "rb") as f:
             return f.read()
 
@@ -2431,40 +2453,6 @@ def run_views(cfg, views, capture: bool = False) -> tuple:
     check(all(np.isfinite(l.segments3d).all() for l in lines),
           "non-finite 3D segments")
     return pipe, phases, dict(kernels.LAUNCHES), printed.getvalue()
-
-
-def build_scale_scene(V: int, S: int = 3000, seed: int = 0) -> list:
-    """The JAX package's large synthetic scene (``tools/bench_scale.py``'s
-    ``build_scene``, copied): 1500 random 3D segments seen by V cameras of
-    3072 x 2304 on a line, each view filled up to S segments with random
-    2D clutter.  Returns (cam_id, Camera, segments)."""
-    import line3dpp_tpu_torch as lt
-
-    rng = np.random.default_rng(seed)
-    n_lines = 1500
-    P = rng.uniform([-6, -4, 8], [6, 4, 18], size=(n_lines, 3))
-    d = rng.normal(size=(n_lines, 3))
-    d /= np.linalg.norm(d, axis=1, keepdims=True)
-    Q = P + d * rng.uniform(0.5, 2.0, size=(n_lines, 1))
-    K = np.array([[2400.0, 0, 1536], [0, 2400.0, 1152], [0, 0, 1]])
-    views = []
-    for i in range(V):
-        R = lt.rotation_from_rpy(rng.normal() * 0.02, -0.005 * i + 0.2,
-                                 rng.normal() * 0.02)
-        C = np.array([0.12 * i - 0.06 * V, rng.normal() * 0.1,
-                      rng.normal() * 0.1])
-        cam = lt.Camera(K, R, -R @ C, 3072, 2304)
-        sv = np.hstack([cam.project(P), cam.project(Q)])
-        inside = ((sv[:, [0, 2]] > 0) & (sv[:, [0, 2]] < 3072)).all(1) & (
-            (sv[:, [1, 3]] > 0) & (sv[:, [1, 3]] < 2304)).all(1)
-        sv = sv[inside]
-        n_fill = max(0, S - len(sv))
-        a = rng.uniform([0, 0], [3072, 2304], size=(n_fill, 2))
-        ang = rng.uniform(0, 2 * np.pi, n_fill)
-        ln = rng.uniform(20, 300, n_fill)
-        b = a + np.stack([np.cos(ang), np.sin(ang)], -1) * ln[:, None]
-        views.append((i, cam, np.vstack([sv, np.hstack([a, b])])[:S]))
-    return views
 
 
 def sharded_world1(inp, cfg, dev) -> dict:
@@ -2518,6 +2506,7 @@ def item14_15_phase(views, cfg, dev, fused_txt: bytes) -> dict:
     import dataclasses
     import torch
     import line3dpp_tpu_torch as lt
+    from line3dpp_tpu_torch.tools import bench_scale
 
     out = {}
     cams = [(v.cam_id, lt.Camera(v.K, v.R, v.t, v.width, v.height),
@@ -2525,7 +2514,7 @@ def item14_15_phase(views, cfg, dev, fused_txt: bytes) -> dict:
     for vb, blocks in ((4, 7), (13, 2)):
         pipe, phases, launches, _ = run_views(
             dataclasses.replace(cfg, view_block=vb), cams)
-        same = txt_bytes(pipe) == fused_txt
+        same = txt_bytes(pipe.lines3d) == fused_txt
         phases.update(txt_equal_to_fused=same, launches={
             k: launches[k] for k in ("match_pairs", "score_matches",
                                      "gather_target_estimates")})
@@ -2540,15 +2529,16 @@ def item14_15_phase(views, cfg, dev, fused_txt: bytes) -> dict:
         del pipe
     torch.cuda.empty_cache()
 
-    # the JAX package's large scene (tools/bench_scale.py), fused and blocked
+    # the large scene of tools/bench_scale.py, fused and blocked
     t0 = time.perf_counter()
-    scale = build_scale_scene(104)
+    scale = [(i, cam, segs) for i, (cam, segs)
+             in enumerate(bench_scale.build_scene(104))]
     build_s = time.perf_counter() - t0
     txts = {}
     for vb in (0, 26):
         pipe, phases, launches, _ = run_views(
             dataclasses.replace(cfg, view_block=vb), scale)
-        txts[vb] = txt_bytes(pipe)
+        txts[vb] = txt_bytes(pipe.lines3d)
         phases["neighbours"] = int(pipe._last_state["neighbor_ids"].shape[1])
         phases["launches"] = {k: launches[k] for k in (
             "match_pairs", "score_matches", "gather_target_estimates")}
@@ -2601,6 +2591,176 @@ def item14_15_phase(views, cfg, dev, fused_txt: bytes) -> dict:
           "knn=20: not K1's general form and K2's first form (M = 320)")
     del pipe
     torch.cuda.empty_cache()
+    return out
+
+
+# the detection kernels of one images -> lines pass
+DETECT_KERNELS = ("cc_tiles", "gather_merged", "moments", "gate_moments",
+                  "consume_survivors", "extents")
+# the kernels that one forward step at k = 10 launches once each
+STEP_ONCE = ("match_pairs", "score_matches", "gather_target_estimates")
+
+
+def drivers_phase(images, cams, gt, image_segs, image_txt: bytes,
+                  image_launches: dict, scale_lines: int) -> dict:
+    """The port's drivers on the card: ``bench.device_step_bench`` at
+    ``bench.py``'s size (every timed run equal to the warm-up bit for bit,
+    K1-K3 once a run), ``bench.images_e2e`` on the facade views (the
+    images phase's detections bit for bit and its detection launches),
+    ``tools.bench_scale.main`` at its defaults (the 104-view blocked run's
+    lines), both facade sweeps from the port's detections (the
+    ``(0.0, ordered)`` TXT byte for byte the images phase's), all eight
+    configurations from JAX's facade detections against
+    ``SWEEP_NPZ`` (``SAME_*``, ``BUNDLED_SAME_F1`` with bundling), and
+    ``tools.drive_synthetic`` (12 lines, recall and precision 1.0).  Each
+    is driven with the launch counters reset just before and read just
+    after."""
+    import torch
+    import line3dpp_tpu_torch as lt
+    from line3dpp_tpu_torch import bench
+    from line3dpp_tpu_torch.ops import kernels
+    from line3dpp_tpu_torch.tools import (bench_scale, drive_synthetic,
+                                          validate_scene2,
+                                          validate_scene2_anchor)
+
+    out = {}
+
+    def counted(fn):
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        got = fn()
+        return got, time.perf_counter() - t0, dict(kernels.LAUNCHES)
+
+    # bench.py's device step, 26 views x 3000 segments x 10 neighbours
+    info, wall, launches = counted(bench.device_step_bench)
+    out["device_step"] = dict(
+        info["result"], runs_s=info["runs_s"], median_s=info["median_s"],
+        peak_device_GiB=info["peak_device_GiB"],
+        launches_per_run=info["launches_per_run"], wall_s=wall)
+    check(info["same_outputs"], "device_step_bench: a timed run differs "
+          "from the warm-up run")
+    check(all(r == {**dict.fromkeys(bench.STEP_KERNELS, 0),
+                    **dict.fromkeys(STEP_ONCE, 1)}
+              for r in info["launches_per_run"]),
+          "device_step_bench: not K1, K2 and K3 once a run")
+    check(launches["match_pairs"] == len(info["runs_s"]) + 1,
+          "device_step_bench: launches outside the warm-up and the runs")
+
+    # bench.py's cold images -> lines pass on the facade views
+    items = [(i, c, im) for i, (c, im) in enumerate(zip(cams, images))]
+    (n, secs, pipe), _, launches = counted(
+        lambda: bench.images_e2e(items))
+    lines = pipe.lines3d
+    same = [np.array_equal(pipe._views[i].segments, image_segs[i])
+            for i in range(len(items))]
+    out["images_e2e"] = dict(
+        images=n, seconds=secs, images_per_sec=n / secs, lines=len(lines),
+        detections_equal=all(same),
+        launches={k: launches[k] for k in DETECT_KERNELS + STEP_ONCE})
+    print("bench.images_e2e, facade: " + json.dumps(out["images_e2e"]),
+          flush=True)
+    check(all(same), f"images_e2e: detections differ from the images "
+          f"phase's in views {[i for i, x in enumerate(same) if not x]}")
+    check(all(launches[k] == image_launches[k] for k in DETECT_KERNELS),
+          "images_e2e: detection launches differ from the images phase's")
+    check(lines and all(np.isfinite(l.segments3d).all() for l in lines),
+          "images_e2e: no lines, or non-finite ones")
+    del pipe
+
+    # tools/bench_scale.py at its defaults
+    result, wall, launches = counted(lambda: bench_scale.main([]))
+    out["bench_scale"] = dict(result, wall_s=wall, launches={
+        k: launches[k] for k in STEP_ONCE})
+    check(result["lines"] == scale_lines, f"bench_scale: {result['lines']} "
+          f"lines, the 104-view blocked run gave {scale_lines}")
+    torch.cuda.empty_cache()
+
+    # the facade sweeps, from the port's own detections, with the segment
+    # cache in a fresh directory: the first configuration detects every
+    # view as the images phase did, and no later one (the anchor sweep's
+    # included) detects again
+    saved_tmp = tempfile.tempdir
+    with tempfile.TemporaryDirectory() as tmp:
+        tempfile.tempdir = tmp
+        try:
+            cache = validate_scene2.cache_dir(cams)
+            rows, wall, launches = counted(
+                lambda: validate_scene2.sweep(images, cams, gt, "cuda"))
+            cached = len(os.listdir(cache))
+            anchor, wall_a, launches_a = counted(
+                lambda: validate_scene2_anchor.sweep(images, cams, gt,
+                                                     "cuda"))
+        finally:
+            tempfile.tempdir = saved_tmp
+    txt_same = txt_bytes(rows[0]["lines3d"]) == image_txt
+    keep = ("lines", "recall", "precision", "count_f1", "seconds")
+    out["validate_scene2"] = dict(
+        wall_s=wall, txt_equal_to_images_phase=txt_same,
+        cached_views=cached, detection_launches={
+            k: launches[k] for k in DETECT_KERNELS},
+        rows=[{"split_bimodal_t": r["split_bimodal_t"],
+               "symmetrization": r["symmetrization"],
+               **{k: r[k] for k in keep}} for r in rows])
+    out["validate_scene2_anchor"] = dict(
+        wall_s=wall_a, detection_launches={
+            k: launches_a[k] for k in DETECT_KERNELS},
+        rows=[{"cluster_strong_min": r["cluster_strong_min"],
+               **{k: r[k] for k in keep}} for r in anchor])
+    check(cached == len(images) and all(
+        launches[k] == image_launches[k] for k in DETECT_KERNELS),
+        f"validate_scene2: {cached} views cached and detection launches "
+        f"{[launches[k] for k in DETECT_KERNELS]}, the images phase's "
+        f"{[image_launches[k] for k in DETECT_KERNELS]} on "
+        f"{len(images)} views")
+    check(not any(launches_a[k] for k in DETECT_KERNELS),
+          "validate_scene2_anchor: detected again where the cache holds "
+          "the views")
+    check(txt_same, "validate_scene2 (0.0, ordered): the TXT differs from "
+          "the images phase's")
+    check(all(r["lines"] > 0 for r in rows + anchor), "a sweep: no lines")
+
+    # the eight configurations from JAX's detections against JAX's lines
+    if not os.path.exists(SWEEP_NPZ):
+        fail(f"missing {SWEEP_NPZ} "
+             f"(tests/make_torch_scene2_sweep_reference.py)")
+    with np.load(SCENE2_NPZ) as data:
+        segs = np.split(data["segments"],
+                        np.cumsum(data["seg_counts"])[:-1])
+        digest = hashlib.sha256(
+            np.ascontiguousarray(data["segments"]).tobytes()).hexdigest()
+    with np.load(SWEEP_NPZ) as data:
+        ref = {k: data[k] for k in data.files}
+    check(str(ref["detections"]) == digest,
+          "the sweep reference was made from other detections")
+    configs = [(f"split_{t}_{sym}", validate_scene2.options(t, sym))
+               for t, sym in validate_scene2.CONFIGS]
+    configs += [(f"anchor_{a}", validate_scene2_anchor.options(a))
+                for a in validate_scene2_anchor.ANCHORS]
+    against = {}
+    for name, opts in configs:
+        check(json.loads(str(ref[f"{name}_config"])) == opts,
+              f"{name}: the reference ran other options")
+        pipe = lt.Line3D(lt.Config(**opts))
+        for i, (c, s) in enumerate(zip(cams, segs)):
+            pipe.add_view(i, c, s)
+        pipe.match_images()
+        pred = [l.segments3d for l in pipe.reconstruct_3d_lines()]
+        want = split_lines(ref, f"{name}_")
+        bundled = pipe.config.optimize
+        against[name] = dict(lines=len(pred), jax_lines=len(want),
+                             count_f1=held_lines(
+                                 pred, want, f"{name}, JAX's detections",
+                                 BUNDLED_SAME_F1 if bundled else SAME_F1))
+    out["sweeps_from_jax_detections"] = against
+
+    # tools/drive_synthetic.py
+    with tempfile.TemporaryDirectory() as tmp:
+        (lines, m), wall, _ = counted(lambda: drive_synthetic.run("cuda",
+                                                                  tmp))
+    out["drive_synthetic"] = dict(lines=len(lines), wall_s=wall, **m)
+    check(len(lines) == 12 and m["recall"] == 1.0
+          and m["precision"] == 1.0,
+          f"drive_synthetic: {len(lines)} lines, {m}")
     return out
 
 
@@ -2805,9 +2965,10 @@ def main() -> None:
     print("images -> lines phases: " + json.dumps(phases), flush=True)
 
     # ---- the command line on the same views, as PGM files and an NVM
-    item11_13["cli"] = cli_phase(
-        images, cams, gt, ref, {i: e.segments for i, e in i2l._views.items()},
-        [l.segments3d for l in i2l.lines3d], dev)
+    image_segs = {i: e.segments for i, e in i2l._views.items()}
+    image_txt = txt_bytes(i2l.lines3d)
+    item11_13["cli"] = cli_phase(images, cams, gt, ref, image_segs,
+                                 [l.segments3d for l in i2l.lines3d], dev)
     del i2l
 
     # ---- the same images under Config(lsd_rescue=True), bundling on: the
@@ -2833,6 +2994,11 @@ def main() -> None:
                                          device=dev),
                 "detect_view0_rescue", opts.out)
 
+    # ---- the drivers: bench.py's metric and images pass, the tools
+    drivers = drivers_phase(images, cams, gt, image_segs, image_txt,
+                            default_launches,
+                            item14_15["scale104_vb26"]["lines"])
+
     if opts.out:
         os.makedirs(opts.out, exist_ok=True)
         with open(os.path.join(opts.out, "build.log"), "w") as f:
@@ -2855,6 +3021,7 @@ def main() -> None:
     print(json.dumps({"full_size": full}), flush=True)
     print(json.dumps({"item11_13": item11_13}), flush=True)
     print(json.dumps({"item14_15": item14_15}), flush=True)
+    print(json.dumps({"drivers": drivers}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi_line, flush=True)
     print(json.dumps({"ok": True, "device": {
