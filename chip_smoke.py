@@ -52,7 +52,17 @@
    same TXT), all matches (``knn=0``: auto-blocked at 3 with the JAX package's
    printed line, K1's and K2's general forms once a block), ``knn=20``
    fused, and the view-sharded step over NCCL at world size 1 against
-   ``forward_step`` bit for bit (``sharded_world1``).
+   ``forward_step`` bit for bit (``sharded_world1``).  Then the
+   weak-scaling tool's path (``scaling_phase``): the sharded step at world
+   size 1 on ``bench.make_workload(4, 1024, 6)`` under ``comm="tile"``
+   and ``"gather"``, bit for bit equal with K1-K3 once a call under each,
+   and ``python -m line3dpp_tpu_torch.tools.bench_scaling --devices 1``
+   as a process of its own (its row checked); and the clustering records
+   (``records_phase``): the 26 views under the compensations with
+   ``L3D_SPLIT_DEBUG`` set, reconstructed with the record lists on and
+   off (the TXT byte for byte, the ``emitted`` records exactly the lines,
+   no node in two records, a split candidate and a visibility drop
+   recorded, the counters printed once a call).
 4. Images to lines: renders the 10 views of the synthetic facade at
    3072 x 2304 (``utils/synthetic``), checks them against the digests of
    ``tests/data/torch_scene2_3072_jax_reference.npz`` (written by
@@ -111,7 +121,10 @@
    (the CLI's, the COLMAP phase's and the item-13 phases' times), one
    ``{"item14_15": ...}`` line (the blocked, 104-view, all-matches, knn=20
    and sharded phases), one ``{"drivers": ...}`` line (the drivers'
-   results and times), one ``{"facade_rounds": ...}``
+   results and times), one ``{"scaling": ...}`` line (the tile/gather
+   check and the tool's row, with the card's name and power limit), one
+   ``{"records": ...}`` line (the counts by outcome, the split candidates
+   and the printed counters), one ``{"facade_rounds": ...}``
    line (K6 with the map and K9's
    consume form on facade view 0's rounds, beside K5 + K6 and K9 with the
    torch tail they replace), one ``{"full_size": ...}`` line (the detection
@@ -139,6 +152,8 @@ import hashlib
 import json
 import os
 import shutil
+import signal
+import socket
 import subprocess
 import sys
 import tempfile
@@ -190,6 +205,14 @@ K10_OPS_PER_BAND = 6        # ... and per band 2 thresholds, 2 comparisons
 K11_OPS_PER_PIXEL = 14      # 2 differences, 2 projections, 4 minima
 # K2's general form against its plain version at this knn (M = 16 x 100)
 K2_WIDE_KNN = 100
+# the weak-scaling tool's defaults: make_workload(views, segments,
+# neighbours) at one rank (4 views a shard), and its process's time limit
+SCALING_WORKLOAD = (4, 1024, 6)
+SCALING_TIMEOUT_S = 300
+# the records phase: the compensations of item 13 (features_phase's)
+RECORDS_OPTIONS = dict(optimize=False, split_bimodal_t=1.1,
+                       split_strong_min=3.0, cluster_strong_min=3.0,
+                       match_rel_cut=0.5)
 
 # Facade bounds against the JAX reference.  The detections move with the
 # order of the float32 moment sums, which JAX (one-hot products) and the
@@ -2458,7 +2481,6 @@ def run_views(cfg, views, capture: bool = False) -> tuple:
 def sharded_world1(inp, cfg, dev) -> dict:
     """The view-sharded step over NCCL at world size 1 (the one card) on
     the 26 views, against ``forward_step``, bit for bit."""
-    import socket
     import torch
     import torch.distributed as dist
     from line3dpp_tpu_torch.models import step
@@ -2474,11 +2496,7 @@ def sharded_world1(inp, cfg, dev) -> dict:
               min_affinity=cfg.min_affinity, pair_chunk=max(cfg.pair_chunk, 1))
     args = [torch.from_numpy(inp[n]).to(dev) for n in STEP_ARRAYS]
     want = step.forward_step(*args, **kw)
-    s = socket.socket()
-    s.bind(("127.0.0.1", 0))
-    port = s.getsockname()[1]
-    s.close()
-    sharded.init_group(0, 1, f"127.0.0.1:{port}")
+    sharded.init_group(0, 1, f"127.0.0.1:{free_port()}")
     try:
         fn = sharded.sharded_forward_step(**kw)
         t0 = time.perf_counter()
@@ -2494,6 +2512,176 @@ def sharded_world1(inp, cfg, dev) -> dict:
     check(not bad, f"the sharded step differs from forward_step in {bad}")
     return dict(wall_s=wall, est=int(got.est_valid.sum()),
                 edges=int(got.aff_valid.sum()))
+
+
+def free_port() -> int:
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def scaling_phase(smi_line: str) -> dict:
+    """The weak-scaling tool's path on the card: the sharded step over
+    NCCL at world size 1 on ``bench.make_workload(*SCALING_WORKLOAD)``
+    under ``comm="tile"`` and ``"gather"`` (bit for bit equal, K1-K3 once
+    a call under each), then ``python -m
+    line3dpp_tpu_torch.tools.bench_scaling --devices 1`` as a process of
+    its own (rc 0, one row with the JAX tool's keys at its default sizes,
+    ``gather_mb`` by its formula), printed with the card's name and power
+    limit."""
+    import torch
+    import torch.distributed as dist
+    from line3dpp_tpu_torch import bench
+    from line3dpp_tpu_torch.ops import kernels
+    from line3dpp_tpu_torch.parallel import sharded
+    from line3dpp_tpu_torch.tools import bench_scaling
+
+    V, S, N = SCALING_WORKLOAD
+    out, got = {}, {}
+    sharded.init_group(0, 1, f"127.0.0.1:{free_port()}")
+    try:
+        args = [torch.from_numpy(a).cuda() for a in
+                sharded.shard_inputs(0, 1, *bench.make_workload(V, S, N))]
+        for comm in ("tile", "gather"):
+            fn = sharded.sharded_forward_step(knn=10, pair_chunk=N,
+                                              comm=comm)
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            got[comm] = fn(*args)
+            torch.cuda.synchronize()
+            out[f"{comm}_s"] = time.perf_counter() - t0
+            launches = {k: kernels.LAUNCHES[k] for k in STEP_ONCE}
+            out[f"{comm}_launches"] = launches
+            check(all(n == 1 for n in launches.values()),
+                  f"sharded step, comm={comm}: not K1-K3 once: {launches}")
+    finally:
+        dist.destroy_process_group()
+    bad = [f for f, a, b in zip(got["gather"]._fields, got["tile"],
+                                got["gather"])
+           if not torch.equal(a.contiguous().view(torch.uint8),
+                              b.contiguous().view(torch.uint8))]
+    out["tile_fields_differing"] = bad
+    out["est"] = int(got["gather"].est_valid.sum())
+    print(f"sharded step, NCCL, world size 1, make_workload{(V, S, N)}: "
+          f"comm=tile against gather, fields that differ: {bad}; "
+          f"launches {json.dumps(out['gather_launches'])}", flush=True)
+    check(not bad, f"comm=tile differs from comm=gather in {bad}")
+    check(out["est"] > 0, "sharded step: no estimate")
+    del got, args
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "line3dpp_tpu_torch.tools.bench_scaling",
+         "--devices", "1"], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True, cwd=REPO,
+        start_new_session=True)
+    try:
+        printed, _ = proc.communicate(timeout=SCALING_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        fail(f"bench_scaling --devices 1 ran past {SCALING_TIMEOUT_S} s")
+    wall = time.perf_counter() - t0
+    rows = [json.loads(line) for line in printed.splitlines()
+            if line.startswith("{")]
+    check(proc.returncode == 0 and len(rows) == 1,
+          f"bench_scaling --devices 1: rc {proc.returncode}:\n{printed}")
+    row = rows[0]
+    check(set(row) == {"devices", "V", "S", "N", "step_ms", "nocomm_ms",
+                       "compile_s", "gather_mb"}
+          and (row["devices"], row["V"], row["S"], row["N"]) == (1, V, S, N)
+          and row["gather_mb"] == bench_scaling.gather_mb(V, S)
+          and row["step_ms"] > 0 and row["nocomm_ms"] > 0,
+          f"bench_scaling --devices 1: unexpected row {row}")
+    out["bench_scaling"] = dict(row, wall_s=wall, card=smi_line)
+    print(f"bench_scaling --devices 1 ({smi_line}): " + json.dumps(row),
+          flush=True)
+    return out
+
+
+def records_phase(views) -> dict:
+    """The clustering records on the 26 cached views under
+    ``RECORDS_OPTIONS`` (the compensations), ``L3D_SPLIT_DEBUG`` set: one
+    ``reconstruct_3d_lines`` with both record lists on and one with them
+    off after one ``match_images``.  The TXT must be byte-equal, the
+    ``emitted`` records exactly the lines (``line_idx`` over 0 ... L-1,
+    the members the lines' residual rows), no node in two cluster
+    records, at least one split candidate and one visibility drop, and the
+    counters printed once a call."""
+    import ast
+    import contextlib
+    import io as _io
+    import torch
+    import line3dpp_tpu_torch as lt
+
+    pipe = lt.Line3D(lt.Config(**RECORDS_OPTIONS))
+    for v in views:
+        pipe.add_view(v.cam_id, lt.Camera(v.K, v.R, v.t, v.width, v.height),
+                      v.segments)
+    pipe.match_images()
+    torch.cuda.synchronize()
+    runs = []
+    saved = os.environ.get("L3D_SPLIT_DEBUG")
+    os.environ["L3D_SPLIT_DEBUG"] = "1"
+    try:
+        for on in (True, False):
+            pipe._split_records = [] if on else None
+            pipe._cluster_records = [] if on else None
+            printed = _io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(printed):
+                lines = pipe.reconstruct_3d_lines()
+            runs.append(dict(seconds=time.perf_counter() - t0,
+                             txt=txt_bytes(lines), lines=lines,
+                             split=pipe._split_records,
+                             cluster=pipe._cluster_records,
+                             printed=printed.getvalue()))
+    finally:
+        if saved is None:
+            del os.environ["L3D_SPLIT_DEBUG"]
+        else:
+            os.environ["L3D_SPLIT_DEBUG"] = saved
+    on, off = runs
+    lines, cluster = on["lines"], on["cluster"]
+    prefix = "[L3D-TPU] bimodal split: "
+    dbg = [ast.literal_eval(line[len(prefix):]) for r in runs
+           for line in r["printed"].splitlines() if line.startswith(prefix)]
+    S = pipe._last_state["mask"].shape[1]
+    cam_ids = pipe._last_state["cam_ids"]
+    emitted = [r for r in cluster if r["outcome"] == "emitted"]
+    same_members = all(
+        sorted((cam_ids[n // S], n % S) for n in r["nodes"].tolist())
+        == sorted(map(tuple, lines[r["line_idx"]].residuals[:, :2]
+                      .astype(int).tolist())) for r in emitted)
+    nodes = np.concatenate([r["nodes"] for r in cluster])
+    out = dict(
+        lines=len(lines),
+        outcomes={k: sum(r["outcome"] == k for r in cluster) for k in (
+            "emitted", "tiny", "sweep-empty", "visibility")},
+        split_candidates=len(on["split"]),
+        splits_applied=sum(r["applied"] for r in on["split"]),
+        dbg=dbg[0] if dbg else None,
+        reconstruct_on_s=on["seconds"], reconstruct_off_s=off["seconds"],
+        txt_equal=on["txt"] == off["txt"])
+    print("records, 26 views, compensations: " + json.dumps(out),
+          flush=True)
+    check(out["txt_equal"], "records: the TXT with the records on differs "
+          "from the TXT with them off")
+    check(sorted(r["line_idx"] for r in emitted) == list(range(len(lines)))
+          and same_members, "records: the emitted records are not the lines")
+    check(len(np.unique(nodes)) == len(nodes),
+          "records: a node lies in two cluster records")
+    check(out["split_candidates"] > 0 and out["outcomes"]["visibility"] > 0,
+          f"records: no split candidate or no visibility drop: {out}")
+    check(len(dbg) == 2 and dbg[0] == dbg[1] and all(
+        r["printed"].count(prefix) == 1 for r in runs),
+        "records: L3D_SPLIT_DEBUG did not print the counters once a call")
+    del pipe
+    torch.cuda.empty_cache()
+    return out
 
 
 def item14_15_phase(views, cfg, dev, fused_txt: bytes) -> dict:
@@ -2924,6 +3112,10 @@ def main() -> None:
     all_matches_launches = item14_15.pop("all_matches_launches")
     torch.cuda.empty_cache()
 
+    # ---- the weak-scaling tool's path and the clustering records
+    scaling = scaling_phase(smi_line)
+    records = records_phase(views)
+
     # ---- the same views under the default Config(): bundling on
     bundled_cached(views, dev, opts)
     torch.cuda.empty_cache()
@@ -3022,6 +3214,8 @@ def main() -> None:
     print(json.dumps({"item11_13": item11_13}), flush=True)
     print(json.dumps({"item14_15": item14_15}), flush=True)
     print(json.dumps({"drivers": drivers}), flush=True)
+    print(json.dumps({"scaling": scaling}), flush=True)
+    print(json.dumps({"records": records}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi_line, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -63,10 +63,13 @@ STEP_KERNELS = ("match_pairs", "match_pairs_all", "score_matches",
 def make_workload(V=26, S=3000, N=10, seed=0):
     """``bench.py``'s synthetic step inputs: 800 random 3D segments seen by
     ``V`` cameras of 3072 x 2304 on a line, each view filled up to ``S``
-    (>= 800) segments with random 2D clutter, the ``N`` nearest views as
+    segments with random 2D clutter, the ``N`` nearest views as
     neighbours.  Returns the eight arrays of ``forward_step`` (segments,
     mask, RtKinv, C, k_reg, neighbour ids, F, pair validity), equal bit
-    for bit to ``bench.make_workload``'s from the same seed."""
+    for bit to ``bench.make_workload``'s from the same seed.  Below 800
+    segments (where ``bench.make_workload`` raises) a view keeps the
+    first ``S`` projections and no clutter, which sizes the CPU runs of
+    ``tools/bench_scaling.py``."""
     rng = np.random.default_rng(seed)
     n_lines = 800
     P = rng.uniform([-4, -3, 8], [4, 3, 16], size=(n_lines, 3))
@@ -87,12 +90,12 @@ def make_workload(V=26, S=3000, N=10, seed=0):
     for i, cam in enumerate(cams):
         sv = np.hstack([cam.project(P), cam.project(Q)]).astype(np.float32)
         # fill the remaining slots with clutter segments (a full load)
-        n_fill = S - len(sv)
+        n_fill = max(S - len(sv), 0)
         a = rng.uniform([0, 0], [3072, 2304], size=(n_fill, 2))
         ang = rng.uniform(0, 2 * np.pi, n_fill)
         ln = rng.uniform(20, 300, n_fill)
         b = a + np.stack([np.cos(ang), np.sin(ang)], -1) * ln[:, None]
-        segs[i] = np.vstack([sv, np.hstack([a, b])])
+        segs[i] = np.vstack([sv, np.hstack([a, b])])[:S]
         mask[i] = True
 
     translation = median_center_translation(cams)

@@ -26,6 +26,7 @@ every match): ``_match_images_blocked``.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Sequence
 
 import numpy as np
@@ -86,6 +87,11 @@ class Line3D:
         # the detector's diagnostic counts of the last add_images call
         self.detect_stats: list[dict] = []
         self._last_state: dict = {}
+        # opt-in diagnostics, the JAX package's: set to [] before
+        # reconstruct_3d_lines to collect one record per bimodal-split
+        # candidate, and one per cluster with its fate
+        self._split_records: list | None = None
+        self._cluster_records: list | None = None
 
     # ------------------------------------------------------------------
     # phase 1: view ingestion (reference: addImage line3D.cc:112-227)
@@ -480,6 +486,11 @@ class Line3D:
         mv = node_view[member_ok]
         ms = node_seg[member_ok]
         C = int(keep_cluster.sum())
+        if self._cluster_records is not None:
+            for lab in np.flatnonzero(~keep_cluster):
+                self._cluster_records.append(
+                    {"outcome": "visibility",
+                     "nodes": nodes[label_inv == lab]})
         if C == 0:
             self.lines3d = []
             return self.lines3d
@@ -572,6 +583,17 @@ class Line3D:
         kc = iv_c[iv_keep]          # already ascending (sweep order)
         kbounds = np.searchsorted(kc, np.arange(C + 1))
         emit = np.bincount(kc, minlength=C) > 0
+        if self._cluster_records is not None:
+            swept = np.bincount(iv_c, minlength=C) > 0
+            # exclusive prefix: the index of each emitted cluster's line
+            line_idx = np.cumsum(emit) - emit
+            for c in range(C):
+                members = order[bounds[c]: bounds[c + 1]]
+                self._cluster_records.append({
+                    "outcome": ("emitted" if emit[c] else
+                                "tiny" if swept[c] else "sweep-empty"),
+                    "nodes": mv[members].astype(np.int64) * S + ms[members],
+                    "line_idx": int(line_idx[c])})
 
         self.lines3d = [
             FinalLine3D(seg_rows[kbounds[c]: kbounds[c + 1]],
@@ -612,6 +634,13 @@ class Line3D:
         same float64 inputs: the principal axis's free sign only swaps
         which side keeps the old cluster id).  ``st`` holds ``cb`` (the
         CameraBatch) and ``median_depth`` (numpy).
+
+        Each candidate whose mode separation ``delta`` reaches 0.5 sigma is
+        recorded in ``self._split_records`` when that is a list (``delta``,
+        Ashman's ``D``, the size ``n``, the depth ``lvl``, the two sides'
+        (views, segments) ``lo`` and ``hi``, and ``applied``); the
+        environment variable ``L3D_SPLIT_DEBUG`` prints the counts of the
+        gates that stopped a split and of the splits, once a call.
         """
         k_reg = np.asarray(st["cb"].k_reg)
         cam_C = np.asarray(st["cb"].C)
@@ -627,15 +656,18 @@ class Line3D:
         new_mc = mc.copy()
         lineP2 = lineP1 + 2.0 * line_dir       # fit convention: cog +- dir
         next_id = C
+        dbg = {"small": 0, "delta": 0, "ashman": 0, "vis": 0, "split": 0}
         stack = [(c, order[bounds[c]: bounds[c + 1]], 0) for c in range(C)]
         while stack:
             c, idx, depth_lvl = stack.pop()
             if len(idx) < 4 or depth_lvl >= max_depth:
+                dbg["small"] += depth_lvl == 0
                 continue
             if strong_min > 0 and m_score is not None:
                 strong = idx[m_score[idx] >= strong_min]
                 if len(strong) < 4:
-                        continue
+                    dbg["small"] += depth_lvl == 0
+                    continue
             else:
                 strong = idx
             d = line_dir[c]
@@ -676,20 +708,30 @@ class Line3D:
                 # would silently reassign members vs the round-2 tuning
                 lo_all = strong[o2[: g + 1]]
                 hi_all = strong[o2[g + 1:]]
+            # within-mode variances; cancellation can drive them a hair
+            # negative for near-identical offsets: clamp so D stays finite
+            # (NaN would silently pass the gate)
+            var_lo = max(csq[g] / (g + 1) - mean_lo[g] ** 2, 0.0)
+            var_hi = max((csq[-1] - csq[g]) / (n - g - 1)
+                         - mean_hi[g] ** 2, 0.0)
+            D = delta[g] / max(np.sqrt(0.5 * (var_lo + var_hi)), EPS)
+            rec = None
+            if self._split_records is not None and delta[g] >= 0.5:
+                rec = {"delta": float(delta[g]), "D": float(D), "n": n,
+                       "lvl": depth_lvl,
+                       "lo": (mv[lo_all].copy(), ms[lo_all].copy()),
+                       "hi": (mv[hi_all].copy(), ms[hi_all].copy()),
+                       "applied": False}
+                self._split_records.append(rec)
             if delta[g] < gap_t:
+                dbg["delta"] += 1
                 continue
             # Ashman's D: the modes must also be separated relative to
             # their within-mode spread (D >= 2 ~ clean bimodality); a
             # smeared unimodal cluster can reach delta ~1.6 std but its
             # within-mode variance stays high, failing this gate
-            # cancellation can drive the variances a hair negative for
-            # near-identical offsets; clamp so D stays finite (NaN would
-            # silently pass the gate)
-            var_lo = max(csq[g] / (g + 1) - mean_lo[g] ** 2, 0.0)
-            var_hi = max((csq[-1] - csq[g]) / (n - g - 1)
-                         - mean_hi[g] ** 2, 0.0)
-            D = delta[g] / max(np.sqrt(0.5 * (var_lo + var_hi)), EPS)
             if D < 2.0:
+                dbg["ashman"] += 1
                 continue
             lo, hi = lo_all, hi_all
             # visibility gate on STRONG members per side when gating is on:
@@ -699,7 +741,11 @@ class Line3D:
             if (len(np.unique(mv[vis_lo])) < visibility
                     or len(np.unique(mv[vis_hi])) < visibility
                     or not len(lo) or not len(hi)):
+                dbg["vis"] += 1
                 continue
+            dbg["split"] += 1
+            if rec is not None:
+                rec["applied"] = True
             # split: high side becomes a new cluster; refit both
             new_mc[hi] = next_id
             for part in (lo, hi):
@@ -722,6 +768,8 @@ class Line3D:
                 stack.append((cid, part, depth_lvl + 1))
             next_id += 1
 
+        if os.environ.get("L3D_SPLIT_DEBUG"):
+            print(f"[L3D-TPU] bimodal split: {dbg}", flush=True)
         return new_mc, next_id, lineP1, lineP2, line_dir
 
     # ------------------------------------------------------------------

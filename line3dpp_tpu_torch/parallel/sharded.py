@@ -17,6 +17,10 @@ The only communication is
 Everything else is local.  Cameras (V x (3, 3) matrices) are replicated.
 NCCL moves CUDA tensors; gloo, for a caller that asks for the CPU, moves
 the masks as ``uint8``.
+
+``comm="tile"``, a benchmark's control (``tools/bench_scaling.py``),
+replaces each gather with a local repeat of the rank's shard
+(:func:`_local_step`).
 """
 
 from __future__ import annotations
@@ -38,7 +42,9 @@ DEFAULTS = dict(epipolar_overlap=0.25, knn=10, two_sig_a_sqr=200.0,
                 min_similarity=0.5, check_orientation=True,
                 min_best_score=0.75, min_best_score_perc=0.10,
                 min_affinity=0.5, pair_chunk=8, use_pallas=False,
-                pallas_interpret=False)
+                pallas_interpret=False, comm="gather")
+# the values of ``comm``: the collectives, or their local stand-in
+COMMS = ("gather", "tile")
 
 
 def init_group(rank: int, world: int, address: str | None = None,
@@ -74,7 +80,16 @@ def _local_step(seg_local, mask_local, RtKinv, C, k_reg, nbr_local, F_local,
                 pv_local, *, group, epipolar_overlap, knn, two_sig_a_sqr,
                 min_similarity, check_orientation, min_best_score,
                 min_best_score_perc, min_affinity, pair_chunk, use_pallas,
-                pallas_interpret) -> StepOutputs:
+                pallas_interpret, comm) -> StepOutputs:
+    """One rank's part of the sharded step.
+
+    ``comm="tile"`` is a BENCHMARK-ONLY control: every gather is replaced
+    by a local repeat of the rank's shard along axis 0 (JAX's ``jnp.tile``)
+    to the gathered shape, so the shapes and the work downstream are those
+    of ``"gather"`` but no collective runs.  The outputs are meaningless in
+    that mode except at world size 1, where they equal ``"gather"``'s bit
+    for bit; ``tools/bench_scaling.py`` takes the difference of the two
+    times as the gathers' cost."""
     world = dist.get_world_size(group)
     rank = dist.get_rank(group)
     V = C.shape[0]
@@ -82,7 +97,10 @@ def _local_step(seg_local, mask_local, RtKinv, C, k_reg, nbr_local, F_local,
     if V % world or Vl * world != V:
         raise ValueError(f"V={V} not divisible by the world size {world} "
                          f"into shards of {Vl} views")
-    gather = functools.partial(_gather, world=world, group=group)
+    if comm == "tile":
+        gather = lambda x: x.repeat(world, *(1,) * (x.dim() - 1))
+    else:
+        gather = functools.partial(_gather, world=world, group=group)
 
     # --- collective 1: segments of all views (targets may be remote)
     seg_all = gather(seg_local)
@@ -122,12 +140,17 @@ def sharded_forward_step(group=None, **static):
     pair_valid)``, which every rank calls with its shard of the view axis
     of segments, masks and pair tables (:func:`shard_inputs`) and the
     replicated camera tables, and which returns the rank's shard of the
-    ``StepOutputs``.  V must be divisible by the world size."""
+    ``StepOutputs``.  V must be divisible by the world size.  ``comm`` is
+    ``"gather"`` (the collectives) or ``"tile"`` (their local stand-in, a
+    benchmark's control whose outputs are meaningless above world size 1;
+    see :func:`_local_step`); any other value raises ``ValueError``."""
     opts = dict(DEFAULTS)
     unknown = set(static) - set(opts)
     if unknown:
         raise TypeError(f"unknown options {sorted(unknown)}")
     opts.update(static)
+    if opts["comm"] not in COMMS:
+        raise ValueError(f"comm={opts['comm']!r}: expected one of {COMMS}")
     return functools.partial(_local_step, group=group, **opts)
 
 

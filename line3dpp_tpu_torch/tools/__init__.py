@@ -1,6 +1,7 @@
 """The port's measuring and validation drivers, counterparts of the
 repository's ``tools/`` scripts of the same names: ``bench_scale``
-(the blocked pipeline on a large synthetic scene), ``drive_synthetic``
+(the blocked pipeline on a large synthetic scene), ``bench_scaling``
+(weak scaling of the view-sharded step), ``drive_synthetic``
 (the pipeline on perfect 2D segments against ground truth),
 ``validate_scene2`` and ``validate_scene2_anchor`` (configuration sweeps
 on the rendered facade).  Each runs as ``python -m

@@ -136,6 +136,16 @@ def line_match_metrics(
             "count_f1": f1}
 
 
+def line_match_assignment(pred_lines, gold_lines, tol, coverage_t=0.8,
+                          samples_per_seg=8) -> dict:
+    """The maximum 1-1 matching itself: {golden index -> pred index}."""
+    if not pred_lines or not gold_lines:
+        return {}
+    match_of_g, _ = _line_match(pred_lines, gold_lines, tol, coverage_t,
+                                samples_per_seg)
+    return {int(i): int(j) for i, j in enumerate(match_of_g) if j >= 0}
+
+
 def _line_match(pred_lines, gold_lines, tol, coverage_t, samples_per_seg):
     # coverage[i, j] = fraction of golden line i's length within tol of
     # predicted line j
