@@ -147,13 +147,13 @@ bundling iterations.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
 import hashlib
 import json
 import os
 import shutil
 import signal
-import socket
 import subprocess
 import sys
 import tempfile
@@ -2450,7 +2450,6 @@ def run_views(cfg, views, capture: bool = False) -> tuple:
     """``views`` ((cam_id, Camera, segments)) through Line3D under ``cfg``
     with the launch counters reset before and read after: the pipeline,
     its phases, its launches and what match_images printed."""
-    import contextlib
     import io as _io
     import torch
     import line3dpp_tpu_torch as lt
@@ -2478,11 +2477,38 @@ def run_views(cfg, views, capture: bool = False) -> tuple:
     return pipe, phases, dict(kernels.LAUNCHES), printed.getvalue()
 
 
+@contextlib.contextmanager
+def one_card_group():
+    """The world-size-1 NCCL group of ``sharded.init_group`` on this
+    process's card, for the ``with`` block.  This process holds the
+    rendezvous store (``sharded.hold_store``) and joins it as a client, as
+    a rank of torchrun's agent does: its port is bound before the group
+    is set up."""
+    import torch.distributed as dist
+    from line3dpp_tpu_torch.parallel import sharded
+
+    # a local of this frame: held until the group is destroyed
+    store = sharded.hold_store(1)
+    saved = {k: os.environ.get(k) for k in sharded.AGENT_STORE_ENV}
+    os.environ.update(sharded.AGENT_STORE_ENV)
+    try:
+        sharded.init_group(0, 1, f"127.0.0.1:{store.port}")
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                del os.environ[k]
+            else:
+                os.environ[k] = v
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
 def sharded_world1(inp, cfg, dev) -> dict:
     """The view-sharded step over NCCL at world size 1 (the one card) on
     the 26 views, against ``forward_step``, bit for bit."""
     import torch
-    import torch.distributed as dist
     from line3dpp_tpu_torch.models import step
     from line3dpp_tpu_torch.models.pipeline import STEP_ARRAYS
     from line3dpp_tpu_torch.parallel import sharded
@@ -2496,15 +2522,12 @@ def sharded_world1(inp, cfg, dev) -> dict:
               min_affinity=cfg.min_affinity, pair_chunk=max(cfg.pair_chunk, 1))
     args = [torch.from_numpy(inp[n]).to(dev) for n in STEP_ARRAYS]
     want = step.forward_step(*args, **kw)
-    sharded.init_group(0, 1, f"127.0.0.1:{free_port()}")
-    try:
+    with one_card_group():
         fn = sharded.sharded_forward_step(**kw)
         t0 = time.perf_counter()
         got = fn(*sharded.shard_inputs(0, 1, *args))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    finally:
-        dist.destroy_process_group()
     bad = [f for f in want._fields
            if not torch.equal(getattr(got, f), getattr(want, f))]
     print(f"sharded step, NCCL, world size 1, 26 views: fields that differ "
@@ -2512,14 +2535,6 @@ def sharded_world1(inp, cfg, dev) -> dict:
     check(not bad, f"the sharded step differs from forward_step in {bad}")
     return dict(wall_s=wall, est=int(got.est_valid.sum()),
                 edges=int(got.aff_valid.sum()))
-
-
-def free_port() -> int:
-    s = socket.socket()
-    s.bind(("127.0.0.1", 0))
-    port = s.getsockname()[1]
-    s.close()
-    return port
 
 
 def scaling_phase(smi_line: str) -> dict:
@@ -2532,7 +2547,6 @@ def scaling_phase(smi_line: str) -> dict:
     ``gather_mb`` by its formula), printed with the card's name and power
     limit."""
     import torch
-    import torch.distributed as dist
     from line3dpp_tpu_torch import bench
     from line3dpp_tpu_torch.ops import kernels
     from line3dpp_tpu_torch.parallel import sharded
@@ -2540,8 +2554,7 @@ def scaling_phase(smi_line: str) -> dict:
 
     V, S, N = SCALING_WORKLOAD
     out, got = {}, {}
-    sharded.init_group(0, 1, f"127.0.0.1:{free_port()}")
-    try:
+    with one_card_group():
         args = [torch.from_numpy(a).cuda() for a in
                 sharded.shard_inputs(0, 1, *bench.make_workload(V, S, N))]
         for comm in ("tile", "gather"):
@@ -2556,8 +2569,6 @@ def scaling_phase(smi_line: str) -> dict:
             out[f"{comm}_launches"] = launches
             check(all(n == 1 for n in launches.values()),
                   f"sharded step, comm={comm}: not K1-K3 once: {launches}")
-    finally:
-        dist.destroy_process_group()
     bad = [f for f, a, b in zip(got["gather"]._fields, got["tile"],
                                 got["gather"])
            if not torch.equal(a.contiguous().view(torch.uint8),
@@ -2612,7 +2623,6 @@ def records_phase(views) -> dict:
     records, at least one split candidate and one visibility drop, and the
     counters printed once a call."""
     import ast
-    import contextlib
     import io as _io
     import torch
     import line3dpp_tpu_torch as lt

@@ -16,6 +16,10 @@ Usage, one process per device::
 
 ``--cpu`` runs on the CPU over gloo (NCCL and the process's CUDA device
 otherwise); ``--out`` makes rank 0 write the gathered outputs to an npz.
+A parent that starts the processes can hold their rendezvous store
+(``sharded.hold_store``) and give its port in ``--coordinator`` with
+``sharded.AGENT_STORE_ENV`` in their environment: every process, 0 too,
+then joins it as a client.
 """
 
 from __future__ import annotations

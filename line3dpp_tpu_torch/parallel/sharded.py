@@ -21,6 +21,10 @@ the masks as ``uint8``.
 ``comm="tile"``, a benchmark's control (``tools/bench_scaling.py``),
 replaces each gather with a local repeat of the rank's shard
 (:func:`_local_step`).
+
+A process that starts the ranks itself holds their rendezvous store
+(:func:`hold_store`) and the ranks join it as clients, as torchrun's agent
+and its workers do: the port is bound before any rank starts.
 """
 
 from __future__ import annotations
@@ -47,13 +51,31 @@ DEFAULTS = dict(epipolar_overlap=0.25, knn=10, two_sig_a_sqr=200.0,
 COMMS = ("gather", "tile")
 
 
+# the environment in which every rank joins the rendezvous store as a
+# client (``torch.distributed.rendezvous._create_c10d_store``): the store is
+# held by the process that started the ranks, as torchrun's agent holds its
+AGENT_STORE_ENV = {"TORCHELASTIC_USE_AGENT_STORE": "True"}
+
+
+def hold_store(world: int) -> dist.TCPStore:
+    """A rendezvous store for ``world`` ranks, held by the calling process
+    on a port that the OS picks and that stays bound while the store
+    lives.  Ranks started with ``AGENT_STORE_ENV`` and ``store.port`` (as
+    ``MASTER_PORT``, or in ``address``) join it as clients.  Keep the
+    store until they have exited."""
+    return dist.TCPStore("127.0.0.1", 0, world, is_master=True,
+                         wait_for_workers=False)
+
+
 def init_group(rank: int, world: int, address: str | None = None,
                cpu: bool = False) -> torch.device:
     """Join the default process group, one process per device (the
     counterpart of ``make_mesh``), and return this rank's device.
 
     ``address`` is ``host:port`` of rank 0; without it the group is set up
-    from the environment that ``torchrun`` gives (``env://``).  NCCL on
+    from the environment that ``torchrun`` gives (``env://``).  Where the
+    environment has ``AGENT_STORE_ENV`` every rank, rank 0 too, joins the
+    store at that address as a client (:func:`hold_store`).  NCCL on
     ``cuda:<local rank>``; gloo on the CPU where ``cpu`` asks for it."""
     backend = "gloo" if cpu else "nccl"
     method = f"tcp://{address}" if address else "env://"

@@ -11,11 +11,16 @@ global view count V = per_shard * D, grow.  The gathered payloads
 (segments, masks, the five estimate tables, the medians) grow with V, so
 any cost of communication or imbalance shows as time growth against D = 1.
 
-For each D the parent starts D worker processes, as ``torchrun`` would
-(``RANK``, ``LOCAL_RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``,
-``MASTER_PORT``), which join one group through ``sharded.init_group``:
-NCCL with rank r on ``cuda:r``, or gloo with ``--cpu`` (each rank then
-takes 1/D of the host's threads).  Each builds
+For each D the parent holds a rendezvous store (``sharded.hold_store``)
+on a port the OS picks, and starts D worker processes with torchrun's
+environment (``RANK``, ``LOCAL_RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``,
+``MASTER_PORT`` = the store's port) and ``TORCHELASTIC_USE_AGENT_STORE``:
+as torchrun's agent does, the parent keeps the port bound until its
+workers have exited, and every rank joins the store as a client.  The
+ranks form one group through ``sharded.init_group``: NCCL with rank r on
+``cuda:r``, or gloo with ``--cpu`` (each rank then takes 1/D of torch's
+threads: ``OMP_NUM_THREADS`` where it is set, else torch's default of one
+a physical core).  Each builds
 ``bench.make_workload(V, S, N)``, takes its shard, and runs the step at
 knn = 10, pair_chunk = N under ``comm="gather"`` and then under
 ``comm="tile"`` (every gather replaced by a local repeat: the same shapes
@@ -39,7 +44,6 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import socket
 import subprocess
 import sys
 import tempfile
@@ -48,6 +52,7 @@ import time
 import numpy as np
 import torch
 
+from ..parallel import sharded
 from . import card_line, synchronize
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(
@@ -90,13 +95,13 @@ def worker(world: int, per_shard: int, S: int, N: int, cpu: bool) -> None:
     import torch.distributed as dist
 
     from ..bench import make_workload
-    from ..parallel import sharded
 
     rank = int(os.environ["RANK"])
     if cpu:
-        # the ranks share the host's cores, as a virtual mesh's devices do;
-        # each with all of them would oversubscribe the host D times
-        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+        # the ranks share torch's threads, as a virtual mesh's devices share
+        # the host; each with all of them would oversubscribe the host D
+        # times
+        torch.set_num_threads(max(1, torch.get_num_threads() // world))
     dev = sharded.init_group(rank, world, cpu=cpu)
     try:
         V = per_shard * world
@@ -139,14 +144,6 @@ def worker(world: int, per_shard: int, S: int, N: int, cpu: bool) -> None:
         dist.destroy_process_group()
 
 
-def _free_port() -> int:
-    s = socket.socket()
-    s.bind(("127.0.0.1", 0))
-    port = s.getsockname()[1]
-    s.close()
-    return port
-
-
 def run_world(world: int, a) -> tuple[dict | None, str]:
     """Starts the ``world`` workers and waits for them: rank 0's row (None
     when a worker failed) and the output of rank 0 or of the first worker
@@ -156,13 +153,15 @@ def run_world(world: int, a) -> tuple[dict | None, str]:
            "--segs", str(a.segs), "--nbrs", str(a.nbrs)]
     if a.cpu:
         cmd.append("--cpu")
-    port = _free_port()
+    # bound until the workers have exited: no other process can take the
+    # port between its choice and the ranks' rendezvous
+    store = sharded.hold_store(world)
     logs, procs = [], []
     try:
         for rank in range(world):
             env = dict(os.environ, RANK=str(rank), LOCAL_RANK=str(rank),
                        WORLD_SIZE=str(world), MASTER_ADDR="127.0.0.1",
-                       MASTER_PORT=str(port))
+                       MASTER_PORT=str(store.port), **sharded.AGENT_STORE_ENV)
             logs.append(tempfile.TemporaryFile("w+"))
             # from the repository's root, ``-m`` finds the package
             procs.append(subprocess.Popen(cmd, stdout=logs[-1],

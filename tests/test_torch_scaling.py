@@ -10,7 +10,9 @@ On the CPU:
   at a small size prints one row per world size with the JAX tool's keys,
   ``V = per_shard * D`` and ``gather_mb`` by its formula, then its table;
 * on the card a world size above the card count raises before any worker
-  starts (the check itself, on a machine with no card).
+  starts (the check itself, on a machine with no card);
+* the tool starts its workers while the port of their rendezvous is bound
+  by the store it holds, and two runs started at once both finish.
 
 Marked ``gpu`` (this file imports no JAX, so they run on the card with
 ``--noconftest``): the same equality over NCCL at world size 1 with K1-K3
@@ -21,12 +23,15 @@ where the machine has two cards (skipped otherwise)::
         tests/test_torch_scaling.py
 """
 
+import argparse
+import errno
 import json
 import os
 import signal
 import socket
 import subprocess
 import sys
+import time
 
 import pytest
 import torch
@@ -42,19 +47,19 @@ ROW_KEYS = {"devices", "V", "S", "N", "step_ms", "nocomm_ms", "compile_s",
             "gather_mb"}
 # the tool at a small size: its own time limit
 TOOL_TIMEOUT_S = 120
-
-
-def _free_port() -> int:
-    s = socket.socket()
-    s.bind(("127.0.0.1", 0))
-    port = s.getsockname()[1]
-    s.close()
-    return port
+# the tool on the CPU at a small size, one torch thread a rank: on a host
+# whose cores the other tests keep busy, a rank with a thread a core waits
+# at every op for all its threads to be scheduled, and a 15 ms step takes
+# seconds
+CPU_ARGV = ("--cpu", "--devices", "1,2", "--per-shard", "2", "--segs", "64",
+            "--nbrs", "2")
+CPU_ENV = {"OMP_NUM_THREADS": "1"}
 
 
 def _one_rank(backend: str):
-    dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:"
-                            f"{_free_port()}", rank=0, world_size=1)
+    # one rank: an in-process store, no socket
+    dist.init_process_group(backend, store=dist.HashStore(), rank=0,
+                            world_size=1)
 
 
 @pytest.fixture
@@ -85,20 +90,36 @@ def test_unknown_comm_raises():
     assert sharded.DEFAULTS["comm"] == "gather"
 
 
-def _run_tool(*argv: str) -> subprocess.CompletedProcess:
-    """The tool in a session of its own, killed with its workers at the
-    time limit."""
-    p = subprocess.Popen(
+def _run_tools(*argvs, env=None) -> list[subprocess.CompletedProcess]:
+    """The tool once for each of ``argvs``, all started at once, each in a
+    session of its own.  At the time limit every run is killed with its
+    workers and the test fails with what each printed."""
+    procs = [subprocess.Popen(
         [sys.executable, "-m", "line3dpp_tpu_torch.tools.bench_scaling",
          *argv], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-        cwd=REPO, start_new_session=True)
+        cwd=REPO, env=dict(os.environ, **(env or {})),
+        start_new_session=True) for argv in argvs]
+    deadline = time.monotonic() + TOOL_TIMEOUT_S
+    printed = []
     try:
-        out, err = p.communicate(timeout=TOOL_TIMEOUT_S)
+        for p in procs:
+            printed.append(p.communicate(
+                timeout=max(0.0, deadline - time.monotonic())))
     except subprocess.TimeoutExpired:
-        os.killpg(p.pid, signal.SIGKILL)
-        p.communicate()
-        raise
-    return subprocess.CompletedProcess(p.args, p.returncode, out, err)
+        for p in procs[len(printed):]:
+            os.killpg(p.pid, signal.SIGKILL)
+            printed.append(p.communicate())
+        pytest.fail(f"bench_scaling ran past {TOOL_TIMEOUT_S} s:\n"
+                    + "\n".join(f"--- {' '.join(p.args[3:])} (exit code "
+                                f"{p.returncode})\nstdout:\n{out}\n"
+                                f"stderr:\n{err}"
+                                for p, (out, err) in zip(procs, printed)))
+    return [subprocess.CompletedProcess(p.args, p.returncode, out, err)
+            for p, (out, err) in zip(procs, printed)]
+
+
+def _run_tool(*argv: str, env=None) -> subprocess.CompletedProcess:
+    return _run_tools(argv, env=env)[0]
 
 
 def _rows(out: str) -> list[dict]:
@@ -107,8 +128,7 @@ def _rows(out: str) -> list[dict]:
 
 
 def test_bench_scaling_on_the_cpu_prints_jax_rows_and_table():
-    r = _run_tool("--cpu", "--devices", "1,2", "--per-shard", "2",
-                  "--segs", "64", "--nbrs", "2")
+    r = _run_tool(*CPU_ARGV, env=CPU_ENV)
     assert r.returncode == 0, r.stdout + r.stderr
     rows = _rows(r.stdout)
     assert [row["devices"] for row in rows] == [1, 2]
@@ -125,6 +145,53 @@ def test_bench_scaling_on_the_cpu_prints_jax_rows_and_table():
                                 "ms", "share", "eff", "MB"]
     assert [line.split()[:2] for line in table[2:]] == [["1", "2"],
                                                         ["2", "4"]]
+
+
+def test_run_world_holds_the_port_while_it_starts_the_workers(monkeypatch):
+    """Every worker starts while its ``MASTER_PORT`` is bound by the
+    parent's store (a fresh bind fails with ``EADDRINUSE``), with
+    torchrun's switch that makes every rank a client of that store."""
+    started = []
+
+    class Worker:
+        returncode = 0
+
+        def __init__(self, cmd, stdout, env, **kw):
+            s = socket.socket()
+            try:
+                s.bind(("127.0.0.1", int(env["MASTER_PORT"])))
+                started.append((env, None))
+            except OSError as e:
+                started.append((env, e.errno))
+            finally:
+                s.close()
+            if env["RANK"] == "0":
+                stdout.write(json.dumps({"devices": 2}) + "\n")
+
+        def poll(self):
+            return 0
+
+        def wait(self):
+            return 0
+
+    monkeypatch.setattr(bench_scaling.subprocess, "Popen", Worker)
+    a = argparse.Namespace(per_shard=2, segs=64, nbrs=2, cpu=True)
+    row, _ = bench_scaling.run_world(2, a)
+    assert row == {"devices": 2}
+    assert [env["RANK"] for env, _ in started] == ["0", "1"]
+    assert len({env["MASTER_PORT"] for env, _ in started}) == 1
+    for env, err in started:
+        assert err == errno.EADDRINUSE, env["MASTER_PORT"]
+        assert env["TORCHELASTIC_USE_AGENT_STORE"] == "True"
+        assert env["WORLD_SIZE"] == "2"
+
+
+def test_two_runs_at_once_both_print_their_rows():
+    """Two runs started at the same moment each rendezvous on their own
+    held store: both exit 0 and print a row for each world size."""
+    for r in _run_tools(CPU_ARGV, CPU_ARGV, env=CPU_ENV):
+        assert r.returncode == 0, r.stdout + r.stderr
+        assert [row["devices"] for row in _rows(r.stdout)] == [1, 2]
 
 
 def test_gather_mb_is_the_jax_formula():

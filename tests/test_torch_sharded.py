@@ -14,7 +14,6 @@ CPU over gloo.
 
 import os
 import re
-import socket
 import subprocess
 import sys
 
@@ -31,14 +30,6 @@ from line3dpp_tpu_torch.parallel import run, sharded
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def _free_port() -> int:
-    s = socket.socket()
-    s.bind(("127.0.0.1", 0))
-    port = s.getsockname()[1]
-    s.close()
-    return port
-
-
 def _single(V=8):
     host = run.example_inputs(V=V, S=16, N=2)
     out = step.forward_step(*(torch.from_numpy(a) for a in host),
@@ -47,13 +38,15 @@ def _single(V=8):
 
 
 def test_two_gloo_processes_equal_the_single_process_step(tmp_path):
-    port = _free_port()
-    env = dict(os.environ)
+    # the test holds the rendezvous store, and both processes join it as
+    # clients: the port stays bound from its choice to the rendezvous
+    store = sharded.hold_store(2)
+    env = dict(os.environ, **sharded.AGENT_STORE_ENV)
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
     npz = tmp_path / "sharded.npz"
     procs = [subprocess.Popen(
         [sys.executable, "-m", "line3dpp_tpu_torch.parallel.run",
-         f"--coordinator=127.0.0.1:{port}", "--num_processes=2",
+         f"--coordinator=127.0.0.1:{store.port}", "--num_processes=2",
          f"--process_id={pid}", "--cpu", "--views", "8", "--out", str(npz)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env,
         cwd=REPO) for pid in range(2)]
@@ -84,8 +77,9 @@ def test_two_gloo_processes_equal_the_single_process_step(tmp_path):
 
 @pytest.fixture
 def one_rank_group():
-    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:"
-                            f"{_free_port()}", rank=0, world_size=1)
+    # one rank: an in-process store, no socket
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                            world_size=1)
     try:
         yield
     finally:

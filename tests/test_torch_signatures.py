@@ -17,7 +17,6 @@ import importlib
 import inspect
 import os
 import pkgutil
-import socket
 import tomllib
 
 import numpy as np
@@ -286,18 +285,11 @@ def test_affinity_dense_ignores_the_pallas_switches():
         assert torch.equal(getattr(got, n), getattr(want, n)), n
 
 
-def _free_port() -> int:
-    s = socket.socket()
-    s.bind(("127.0.0.1", 0))
-    port = s.getsockname()[1]
-    s.close()
-    return port
-
-
 def test_sharded_step_takes_the_jax_options():
     """``use_pallas``/``pallas_interpret`` change no bit."""
-    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:"
-                            f"{_free_port()}", rank=0, world_size=1)
+    # one rank: an in-process store, no socket
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                            world_size=1)
     try:
         host = run.example_inputs(V=8, S=16, N=2)
         args = [torch.from_numpy(a) for a in sharded.shard_inputs(0, 1,
