@@ -27,6 +27,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import obs
 from . import kernels
 from .geometry import DEG
 
@@ -125,7 +126,7 @@ def gather_target_estimates_cuda(table, est_valid, neighbor_ids, tgt_seg,
         "l3d_gather_target_estimates", p(table), p(est_valid),
         p(neighbor_ids), p(tgt_seg), V_tab, S, V, M, N, knn, p(out),
         p(valid), kernels.stream(dev))
-    kernels.LAUNCHES["gather_target_estimates"] += 1
+    obs.launched("gather_target_estimates")
     return TargetEstimates(P1=[out[0], out[1], out[2]],
                            P2=[out[3], out[4], out[5]],
                            d1=out[6], d2=out[7], valid=valid)

@@ -40,6 +40,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import obs
 from .geometry import cross as cross3
 
 EPS = 1e-12
@@ -256,23 +257,24 @@ def lm_optimize(params0, obs_cluster, KinvT, R, t, p1h, p2h, seg_dir,
     # the cost at the current parameters; an accepted step hands its own on
     c_old = prob.cost(prob.residuals(params))
     for _ in range(iterations):
-        r, J = _res_and_jac(params[prob.cluster], *prob.obs)
-        hw = _huber_w(r)                                  # (O, 2)
-        rw = hw * r
-        Jw = hw[..., None] * J                            # (O, 2, 4)
-        JTJ = prob.cluster_sum(Jw[:, 0, :, None] * Jw[:, 0, None, :]
-                               + Jw[:, 1, :, None] * Jw[:, 1, None, :])
-        g = prob.cluster_sum(Jw[:, 0] * rw[:, 0, None]
-                             + Jw[:, 1] * rw[:, 1, None])
-        diag = torch.diagonal(JTJ, dim1=-2, dim2=-1)
-        A = JTJ + (lam[:, None] * diag.clamp_min(1e-8))[:, :, None] * eye
-        delta = torch.linalg.solve(A, g[..., None])[..., 0]
-        new_params = params - delta
-        c_new = prob.cost(prob.residuals(new_params))
-        better = c_new < c_old
-        params = torch.where(better[:, None], new_params, params)
-        c_old = torch.where(better, c_new, c_old)
-        lam = torch.where(better, lam * 0.33, lam * 3.0).clamp(1e-9, 1e6)
+        with obs.span("recon.bundle.lm_iteration"):
+            r, J = _res_and_jac(params[prob.cluster], *prob.obs)
+            hw = _huber_w(r)                                  # (O, 2)
+            rw = hw * r
+            Jw = hw[..., None] * J                            # (O, 2, 4)
+            JTJ = prob.cluster_sum(Jw[:, 0, :, None] * Jw[:, 0, None, :]
+                                   + Jw[:, 1, :, None] * Jw[:, 1, None, :])
+            g = prob.cluster_sum(Jw[:, 0] * rw[:, 0, None]
+                                 + Jw[:, 1] * rw[:, 1, None])
+            diag = torch.diagonal(JTJ, dim1=-2, dim2=-1)
+            A = JTJ + (lam[:, None] * diag.clamp_min(1e-8))[:, :, None] * eye
+            delta = torch.linalg.solve(A, g[..., None])[..., 0]
+            new_params = params - delta
+            c_new = prob.cost(prob.residuals(new_params))
+            better = c_new < c_old
+            params = torch.where(better[:, None], new_params, params)
+            c_old = torch.where(better, c_new, c_old)
+            lam = torch.where(better, lam * 0.33, lam * 3.0).clamp(1e-9, 1e6)
     return params
 
 
@@ -306,6 +308,7 @@ def problem_from_capture(capture: dict, device) -> dict:
     return out
 
 
+@obs.spanned("recon.bundle")
 def optimize_cluster_lines(lineP1, lineP2, mc, mv, ms, C, st, config,
                            iterations: int | None = None,
                            device: str | torch.device | None = None,

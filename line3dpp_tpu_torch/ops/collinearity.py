@@ -20,6 +20,8 @@ from __future__ import annotations
 
 import torch
 
+from .. import obs
+
 EPS = 1e-12
 # float32 planes of (B, S, S) alive at once in collinear_similarity, and
 # the bytes a batch of views may hold in them
@@ -128,6 +130,7 @@ def collinear_similarity(est_P1, est_P2, est_d1, est_d2, est_valid, collin,
     return torch.where(edge, sim, torch.zeros_like(sim)), edge
 
 
+@obs.spanned("recon.collinearity")
 def collinear_edges(segments, mask, est_P1, est_P2, est_d1, est_d2,
                     est_valid, k_reg, median_depth, med_scene_depth: float,
                     t_px: float, min_affinity: float):

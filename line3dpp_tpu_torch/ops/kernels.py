@@ -9,8 +9,11 @@ loaded when a module is imported, so the CPU-only tests import everything.
 
 Every C entry point launches on the stream it is given, allocates nothing,
 and returns ``cudaGetLastError()``; :func:`launch` raises when that is not 0.
-``LAUNCHES`` counts the calls that launched a kernel, per wrapper, in
-``ops/matching.py`` (K1: ``match_pairs``, the insertion form, and
+``LAUNCHES`` counts the calls that launched a kernel, per wrapper, for the
+whole process; each wrapper counts its launch through
+``line3dpp_tpu_torch.obs.launched``, which while spans record also adds
+the launch to the innermost open span (``obs.summary``).  The wrappers
+are in ``ops/matching.py`` (K1: ``match_pairs``, the insertion form, and
 ``match_pairs_all``, the general form), ``ops/scoring.py`` (K2:
 ``score_matches`` and ``score_matches_all``, its general form), ``ops/affinity.py`` (K3),
 ``ops/lsd_cc.py`` (K4), ``ops/lsd_gather.py`` (K5, K6: ``gather_labels``

@@ -49,6 +49,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import obs
 from . import lsd_cc, lsd_fit, lsd_gather
 from .special import betainc
 
@@ -340,6 +341,7 @@ def _nfa(k_cnt: torch.Tensor, n_area: torch.Tensor, log_ntests: float,
     return -(log_ntests + torch.log10(tail.clamp_min(1e-300)))
 
 
+@obs.spanned("lsd.components")
 def _pixel_list(angle, active, idx, mag_c, ang_c, tol: float,
                 tile: tuple) -> dict:
     """Connected components of the active pixels and the listed pixels
@@ -513,6 +515,7 @@ def _rect_improve(pl: dict, f: dict, pix, log_ntests: float) -> torch.Tensor:
             & (nfa_b > LOG_EPS)).any(dim=1)
 
 
+@obs.spanned("lsd.round")
 def _lsd_round(angle, active, idx, mag_c, ang_c, tol: float, consume: bool,
                tile: tuple, hw2: int, refine_iters: int = 2,
                rect_improve: bool = False, rescue: bool = False,
@@ -555,73 +558,77 @@ def _lsd_round(angle, active, idx, mag_c, ang_c, tol: float, consume: bool,
                                    _with_gate(f, gate, center), dump_keep,
                                    cos_tol, C)
 
-    pix = torch.ones(n, dtype=torch.float32, device=dev)
-    if seed_gate:
-        # fit the pixels near the seed's angle first, then re-admit every
-        # pixel aligned with that axis: a curved tail no longer bends the
-        # first fit, and the pixels gated out re-cluster in later rounds
-        f0 = refit(pix * _seed_angle_ok(pl).to(torch.float32))
-        pix = gated_pix(f0, torch.full((C,), BIG, device=dev), pix, True)
-    f = refit(pix)
+    with obs.span("lsd.fit"):
+        pix = torch.ones(n, dtype=torch.float32, device=dev)
+        if seed_gate:
+            # fit the pixels near the seed's angle first, then re-admit every
+            # pixel aligned with that axis: a curved tail no longer bends the
+            # first fit, and the pixels gated out re-cluster in later rounds
+            f0 = refit(pix * _seed_angle_ok(pl).to(torch.float32))
+            pix = gated_pix(f0, torch.full((C,), BIG, device=dev), pix, True)
+        f = refit(pix)
 
-    # the density refine: failing components keep only the gated pixels
-    # aligned with their axis, and refit
-    anchored = (seed_center or side_split) and refine_iters > 0
-    if anchored:
-        x_seed, y_seed, seed_ok = _seed_positions(pl, wp)
-    n_split = 0
-    for _ in range(refine_iters):
-        gate, fail = _refine_gate(f)
-        if side_split:
-            # two close parallel lines fused into one component put the
-            # axis between them: the w_proj distribution is two bands
-            # around a hollow middle (sigma_w / w_ext tends to 1, against
-            # 0.58 for a filled band).  Keep the seed's side whole and
-            # release the other line for the next round.
-            w_ext = torch.maximum(f["wmin"].abs(), f["wmax"].abs())
-            hollow = torch.sqrt(f["var_w"].clamp_min(0.0)) >= 0.70 * w_ext
-            side_ext = torch.where(_seed_offset(f, x_seed, y_seed) >= 0.0,
-                                   f["wmax"], f["wmin"])
-            two = fail & hollow & seed_ok & (w_ext >= 1.0)
-            n_split += int(two.sum())
-            pix = gated_pix(f, torch.where(two, 0.5 * side_ext.abs(), gate),
-                            pix, True,
-                            center=torch.where(two, 0.5 * side_ext, 0.0))
-            f = refit(pix)
-        elif seed_center:
-            # shrink toward the seed pixel, not the fitted axis (lsd.cpp
-            # reduce_region_radius 1296-1358)
-            wc = torch.where(fail & seed_ok,
-                             _seed_offset(f, x_seed, y_seed), 0.0)
-            pix = gated_pix(f, gate, pix, True, center=wc)
-            f = refit(pix)
-        else:
-            pix, mom = lsd_fit.gate_moments(slot, xs, ys, ang_s, mag_s, pix,
-                                            _with_gate(f, gate), True,
-                                            COS_GATE, C, pl["starts"])
-            f = fit(mom, pix)
+    with obs.span("lsd.refine"):
+        # the density refine: failing components keep only the gated pixels
+        # aligned with their axis, and refit
+        anchored = (seed_center or side_split) and refine_iters > 0
+        if anchored:
+            x_seed, y_seed, seed_ok = _seed_positions(pl, wp)
+        n_split = 0
+        for _ in range(refine_iters):
+            gate, fail = _refine_gate(f)
+            if side_split:
+                # two close parallel lines fused into one component put the
+                # axis between them: the w_proj distribution is two bands
+                # around a hollow middle (sigma_w / w_ext tends to 1, against
+                # 0.58 for a filled band).  Keep the seed's side whole and
+                # release the other line for the next round.
+                w_ext = torch.maximum(f["wmin"].abs(), f["wmax"].abs())
+                hollow = torch.sqrt(f["var_w"].clamp_min(0.0)) >= 0.70 * w_ext
+                side_ext = torch.where(_seed_offset(f, x_seed, y_seed) >= 0.0,
+                                       f["wmax"], f["wmin"])
+                two = fail & hollow & seed_ok & (w_ext >= 1.0)
+                n_split += int(two.sum())
+                pix = gated_pix(
+                    f, torch.where(two, 0.5 * side_ext.abs(), gate), pix,
+                    True, center=torch.where(two, 0.5 * side_ext, 0.0))
+                f = refit(pix)
+            elif seed_center:
+                # shrink toward the seed pixel, not the fitted axis (lsd.cpp
+                # reduce_region_radius 1296-1358)
+                wc = torch.where(fail & seed_ok,
+                                 _seed_offset(f, x_seed, y_seed), 0.0)
+                pix = gated_pix(f, gate, pix, True, center=wc)
+                f = refit(pix)
+            else:
+                pix, mom = lsd_fit.gate_moments(
+                    slot, xs, ys, ang_s, mag_s, pix, _with_gate(f, gate),
+                    True, COS_GATE, C, pl["starts"])
+                f = fit(mom, pix)
 
-    # NFA a-contrario validation: (HW)^{5/2} tests, p = ANG_TH / 180
-    log_ntests = 2.5 * math.log10(float(hw2))
-    log_nfa = _nfa(f["npix"], f["length"].clamp_min(1.0) * f["width"],
-                   log_ntests)
-    ok = ((f["npix"] >= 5.0) & (f["density"] >= DENSITY_TH)
-          & (log_nfa > LOG_EPS))
-    res = None
-    if rescue:
-        res = _rescue(pl, f, pix, ok, log_ntests)
-        ok = ok | res["rescued"]
-        if diag is not None:
-            diag.update(res)
-    if rect_improve:
-        ok = ok | _rect_improve(pl, f, pix, log_ntests)
+    with obs.span("lsd.nfa"):
+        # NFA a-contrario validation: (HW)^{5/2} tests, p = ANG_TH / 180
+        log_ntests = 2.5 * math.log10(float(hw2))
+        log_nfa = _nfa(f["npix"], f["length"].clamp_min(1.0) * f["width"],
+                       log_ntests)
+        ok = ((f["npix"] >= 5.0) & (f["density"] >= DENSITY_TH)
+              & (log_nfa > LOG_EPS))
+        res = None
+        if rescue:
+            res = _rescue(pl, f, pix, ok, log_ntests)
+            ok = ok | res["rescued"]
+            if diag is not None:
+                diag.update(res)
+        if rect_improve:
+            ok = ok | _rect_improve(pl, f, pix, log_ntests)
 
     survivors = None
     if consume:
-        # remove every aligned pixel within an accepted rectangle's band
-        survivors = lsd_fit.consume_survivors(
-            slot, xs, ys, idx_s, mag_s, ang_s, _consume_tables(f, ok, res),
-            COS_GATE, C)
+        with obs.span("lsd.consume"):
+            # remove every aligned pixel within an accepted rectangle's band
+            survivors = lsd_fit.consume_survivors(
+                slot, xs, ys, idx_s, mag_s, ang_s,
+                _consume_tables(f, ok, res), COS_GATE, C)
 
     # endpoints in subsampled coordinates -> original (/SCALE, lsd.cpp
     # 2103-2108); a rescued segment shifts onto its band's centre line
@@ -641,6 +648,7 @@ def _lsd_round(angle, active, idx, mag_c, ang_c, tol: float, consume: bool,
     return segs, ok, survivors, stats
 
 
+@obs.spanned("lsd.image")
 def _lsd_core(img: torch.Tensor, n_rounds: int = 3, refine_iters: int = 2,
               rect_improve: bool = False, rescue: bool = False,
               seed_gate: bool = False, seed_center: bool = False,
@@ -811,6 +819,7 @@ def _prepare(image: np.ndarray, max_width: int, device: torch.device):
     return t, ds
 
 
+@obs.spanned("lsd.detect")
 def detect_batch(images: Sequence[np.ndarray], max_width: int = -1,
                  depth: int = 3, rect_improve: bool = False,
                  rescue: bool = False, n_rounds: int = 3,

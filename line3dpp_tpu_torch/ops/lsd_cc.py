@@ -29,6 +29,7 @@ import math
 import numpy as np
 import torch
 
+from .. import obs
 from . import kernels
 
 INVALID = 2**30
@@ -148,7 +149,7 @@ def cc_tiles_cuda(angle: torch.Tensor, active: torch.Tensor, tol: float,
     kernels.launch("l3d_cc_tiles", p(angle), p(active), hp, wp, tile[0],
                    tile[1], ph, pw, ctypes.c_float(float(np.float32(tol))),
                    p(labels), p(unconverged), kernels.stream(dev))
-    kernels.LAUNCHES["cc_tiles"] += 1
+    obs.launched("cc_tiles")
     return labels, unconverged
 
 

@@ -49,6 +49,7 @@ import ctypes
 
 import torch
 
+from .. import obs
 from . import kernels
 
 BIG = 1e9
@@ -363,7 +364,7 @@ def moments_cuda(slot, xs, ys, mag, pix, C: int,
     kernels.launch("l3d_moments", p(slot), p(xs), p(ys), p(mag), p(pix),
                    p(starts), n, C, fit_threads(n, C), p(out),
                    kernels.stream(dev))
-    kernels.LAUNCHES["moments"] += 1
+    obs.launched("moments")
     return out
 
 
@@ -381,7 +382,7 @@ def gate_moments_cuda(slot, xs, ys, ang, mag, pix, tables, dump_keep: bool,
                    p(pix), p(tables), p(starts), n, C, fit_threads(n, C),
                    int(bool(dump_keep)), ctypes.c_float(cos_tol), p(newpix),
                    p(out), kernels.stream(dev))
-    kernels.LAUNCHES["gate_moments"] += 1
+    obs.launched("gate_moments")
     return newpix, out
 
 
@@ -395,7 +396,7 @@ def gate_pixels_cuda(slot, xs, ys, ang, pix, tables, dump_keep: bool,
     kernels.launch("l3d_gate_pixels", p(slot), p(xs), p(ys), p(ang), p(pix),
                    p(tables), n, C, int(bool(dump_keep)),
                    ctypes.c_float(cos_tol), p(newpix), kernels.stream(dev))
-    kernels.LAUNCHES["gate_pixels"] += 1
+    obs.launched("gate_pixels")
     return newpix
 
 
@@ -446,7 +447,7 @@ def consume_survivors_into(slot, xs, ys, idx_s, mag_s, ang_s, tables,
                    p(idx_s), p(mag_s), p(tables), n, C, items,
                    ctypes.c_float(cos_tol), p(words), words.numel(), epoch,
                    p(idx), p(mag), p(ang), p(count), ctypes.c_void_p(stream))
-    kernels.LAUNCHES["consume_survivors"] += 1
+    obs.launched("consume_survivors")
 
 
 def consume_survivors_cuda(slot, xs, ys, idx_s, mag_s, ang_s, tables,
@@ -492,7 +493,7 @@ def _counts_cuda(slot, xs, ys, ang, pix, tables, C: int, bands,
                    p(tables), p(bands), p(starts), n, C, B, half, span,
                    ctypes.c_float(cos_tol), p(words), words.numel(), epoch,
                    p(out), ctypes.c_void_p(stream))
-    kernels.LAUNCHES["rescue_counts" if half else "band_counts"] += 1
+    obs.launched("rescue_counts" if half else "band_counts")
     return out
 
 
@@ -524,7 +525,7 @@ def extents_cuda(slot, xs, ys, pix, tables, C: int,
     p = kernels.ptr
     kernels.launch("l3d_extents", p(slot), p(xs), p(ys), p(pix), p(tables),
                    p(starts), n, C, p(out), kernels.stream(dev))
-    kernels.LAUNCHES["extents"] += 1
+    obs.launched("extents")
     return out
 
 

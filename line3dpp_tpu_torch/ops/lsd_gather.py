@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import obs
 from . import kernels
 from .lsd_cc import INVALID
 
@@ -60,7 +61,7 @@ def apply_merge_dense_cuda(lab: torch.Tensor, T: torch.Tensor
     out = torch.empty_like(lab)
     kernels.launch("l3d_apply_merge_dense", kernels.ptr(lab), kernels.ptr(T),
                    lab.numel(), kernels.ptr(out), kernels.stream(dev))
-    kernels.LAUNCHES["apply_merge_dense"] += 1
+    obs.launched("apply_merge_dense")
     return out
 
 
@@ -73,7 +74,7 @@ def gather_labels_cuda(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     out = torch.empty(idx.numel(), dtype=torch.int32, device=dev)
     kernels.launch("l3d_gather_labels", kernels.ptr(src), kernels.ptr(idx),
                    idx.numel(), kernels.ptr(out), kernels.stream(dev))
-    kernels.LAUNCHES["gather_labels"] += 1
+    obs.launched("gather_labels")
     return out
 
 
@@ -92,7 +93,7 @@ def gather_merged_cuda(lab: torch.Tensor, T: torch.Tensor,
     kernels.launch("l3d_gather_merged", kernels.ptr(lab), kernels.ptr(T),
                    kernels.ptr(idx), lab.numel(), idx.numel(),
                    kernels.ptr(out), kernels.stream(dev))
-    kernels.LAUNCHES["gather_merged"] += 1
+    obs.launched("gather_merged")
     return out
 
 

@@ -26,6 +26,7 @@ from typing import NamedTuple
 import torch
 
 from . import geometry as geo
+from .. import obs
 from . import kernels
 
 EPS = 1e-12
@@ -277,10 +278,10 @@ def match_pairs_cuda(t: PairTables, epipolar_overlap: float, knn: int,
         kernels.launch("l3d_match_pairs_all", *tables, int(list_len),
                        p(scratch), p(flagged), p(n_flagged), *outs[:-1],
                        p(valid), outs[-1])
-        kernels.LAUNCHES["match_pairs_all"] += 1
+        obs.launched("match_pairs_all")
         return PairMatches(idx, ov, dp1, dp2, dq1, dq2, valid)
     kernels.launch("l3d_match_pairs", *tables, *outs)
-    kernels.LAUNCHES["match_pairs"] += 1
+    obs.launched("match_pairs")
     return PairMatches(idx, ov, dp1, dp2, dq1, dq2, ov > 0.0)
 
 

@@ -29,6 +29,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import obs
+
 EPS = 1e-12
 # wedges enumerated per step of wedge_plan (bounds its memory)
 WEDGE_CHUNK = 1 << 22
@@ -139,6 +141,7 @@ def rdd_sparse(csr: CSR, iterations: int = 10) -> torch.Tensor:
     return torch.minimum(P, P[csr.rev])
 
 
+@obs.spanned("recon.rdd")
 def rdd_edges(ei, ej, ew, num_nodes: int, iterations: int = 10,
               device=None) -> np.ndarray:
     """Run RDD given undirected COO edges; returns the diffused weight of

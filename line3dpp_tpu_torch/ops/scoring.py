@@ -26,6 +26,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import obs
 from . import kernels
 from .geometry import DEG
 
@@ -262,11 +263,11 @@ def score_matches_cuda(r1, r2, rmid, C, k_reg, tgt_C, tgt_k, d_p1, d_p2,
         kernels.launch("l3d_score_matches_all", *inputs, int(records),
                        p(rec_a), p(rec_b), p(rec_slot), p(flagged),
                        p(n_flagged), p(score), p(ok), kernels.stream(dev))
-        kernels.LAUNCHES["score_matches_all"] += 1
+        obs.launched("score_matches_all")
     else:
         kernels.launch("l3d_score_matches", *inputs, p(score), p(ok),
                        kernels.stream(dev))
-        kernels.LAUNCHES["score_matches"] += 1
+        obs.launched("score_matches")
     return ScoredMatches(score, ok)
 
 
