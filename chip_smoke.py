@@ -62,7 +62,15 @@
    ``L3D_SPLIT_DEBUG`` set, reconstructed with the record lists on and
    off (the TXT byte for byte, the ``emitted`` records exactly the lines,
    no node in two records, a split candidate and a visibility drop
-   recorded, the counters printed once a call).
+   recorded, the counters printed once a call).  Then the same views
+   under the default ``Config()`` (``bundled_cached``): the bundling kernel
+   (``csrc/bundling.cu``, one launch a call) on the LM problem the JAX
+   package assembled (``tests/data/torch_bundling_26_jax_reference.npz``,
+   2295 clusters, 250 iterations) within ``LM_COST_RTOL`` of JAX's total
+   cost, bit-identical twice, and within ``LM_PLAIN_RTOL`` of the plain
+   loop's on the card (the kernels line's ``LM lm_bundle`` row: its
+   bound, counted from the capture, and the plain loop's time), then the
+   bundled path through the entry points against JAX's bundled lines.
 4. Images to lines: renders the 10 views of the synthetic facade at
    3072 x 2304 (``utils/synthetic``), checks them against the digests of
    ``tests/data/torch_scene2_3072_jax_reference.npz`` (written by
@@ -203,6 +211,16 @@ K9_OPS_PER_PIXEL = 50       # cosf, sinf (~20 each), projection, 3 tests
 K10_OPS_PER_PIXEL = 8       # 2 differences, projection, s (lsd_fit.cu) ...
 K10_OPS_PER_BAND = 6        # ... and per band 2 thresholds, 2 comparisons
 K11_OPS_PER_PIXEL = 14      # 2 differences, 2 projections, 4 minima
+# line bundling (bundling.cu), per observation: a Jacobian evaluation (5
+# projections of 57, the line's norm and weight with their 4 tangents ~120,
+# 2 residual rows and their Jacobians ~120, J^T J and g 56; asinf and expf
+# ~20 each) and a cost evaluation (a projection, the weight, 2 residuals,
+# Huber); per cluster, the frame and its tangents and, each iteration, the
+# damped 4 x 4 solve and the update
+LM_OPS_PER_JACOBIAN = 590
+LM_OPS_PER_COST = 140
+LM_OPS_PER_FRAME = 100
+LM_OPS_PER_STEP = 90
 # K2's general form against its plain version at this knn (M = 16 x 100)
 K2_WIDE_KNN = 100
 # the weak-scaling tool's defaults: make_workload(views, segments,
@@ -249,6 +267,10 @@ BUNDLED_SAME_F1 = 0.97
 # the end relative to JAX's.
 LM_COST0_RTOL = 1e-4
 LM_COST_RTOL = 1e-3
+# the bundling kernel's total cost against the plain loop's on the card
+# (tests/test_torch_bundling_cuda.py's TOTAL_RTOL; measured 1.79e-4, the
+# plain loop on the CPU against the card 1.49e-4)
+LM_PLAIN_RTOL = 5e-4
 # active share of the synthetic full-size grids: real photos' round 1
 # (30-47%), and 57% for a 2.8 M-pixel list (the JAX package's cap NC)
 FULL_SIZE_ACTIVE = (0.30, 0.47, 0.57)
@@ -264,6 +286,8 @@ FULL_SIZE_KEYS = ("name", "max_abs_err", "ms", "device_ms", "plain_ms",
 OFF_PATH = ("apply_merge_dense", "gather_labels", "gate_pixels",
             "band_counts")
 RESCUE_ONLY = ("rescue_counts",)
+# the kernels that only a Config with bundling (optimize) launches
+BUNDLE_ONLY = ("lm_bundle",)
 # the general forms of K1 (k > 16) and K2 (M > 1024): the images paths run
 # k = 10, M <= 1024; all matches (knn <= 0) and knn = 20 run them
 GENERAL_FORMS = ("match_pairs_all", "score_matches_all")
@@ -1649,7 +1673,8 @@ def images_to_lines(images, cams, gt, ref, dev, rescue: bool = False):
         # (held against their plain versions above); K10 and K9's
         # gate_pixels form run in the rescue cascade only
         check(n > 0 or name in OFF_PATH or name in GENERAL_FORMS
-              or (name in RESCUE_ONLY and not rescue),
+              or (name in RESCUE_ONLY and not rescue)
+              or (name in BUNDLE_ONLY and not cfg.optimize),
               f"kernel {name} was not launched on the images -> lines path")
     check(all(launches[name] == 0 for name in OFF_PATH),
           "detection launched K5 or K6's gather_labels form")
@@ -1773,7 +1798,8 @@ def cli_phase(images, cams, gt, ref, seg_views, geo_lines, dev) -> dict:
     check(first.pipe.config == cfg, "the CLI built another Config")
     check(first.pipe.device.type == "cuda", "the CLI did not run on the card")
     check(all(n > 0 for k, n in launches[0].items()
-              if k not in OFF_PATH + RESCUE_ONLY + GENERAL_FORMS),
+              if k not in OFF_PATH + RESCUE_ONLY + GENERAL_FORMS
+              and (cfg.optimize or k not in BUNDLE_ONLY)),
           "the CLI's first run did not launch every kernel of its path")
     check(len(first.pipe.detect_stats) == len(images),
           "the CLI's first run did not detect every view")
@@ -1984,21 +2010,61 @@ def lm_reference(dev):
              f"(tests/make_torch_bundling_reference.py)")
     with np.load(BUNDLING_NPZ) as data:
         ref = {k: data[k] for k in data.files}
-    cam = ref["cam_rows"][ref["obs_cam"]]
-    ones = np.ones((len(cam), 1), np.float32)
-    capture = dict(
-        params0=ref["params0"], obs_cluster=ref["obs_cluster"],
-        Ko=cam[:, 0:9].reshape(-1, 3, 3), Ro=cam[:, 9:18].reshape(-1, 3, 3),
-        to=cam[:, 18:21], p1h=np.concatenate([ref["p1"], ones], 1),
-        p2h=np.concatenate([ref["p2"], ones], 1), d2=ref["d2"],
-        C=len(ref["params0"]))
-    return bundling.problem_from_capture(capture, dev), ref
+    return bundling.problem_from_reference(ref, dev), ref
+
+
+def lm_row(prob, args, iters: int, runs, lm) -> dict:
+    """The kernels line's row of the bundling kernel on JAX's problem:
+    its final cost against the plain loop's on the card, its bound from
+    the work these inputs need (each cluster's Jacobians at the start and
+    after each accepted step, a cost per iteration and one at the start),
+    and the plain loop's time."""
+    import torch
+    from line3dpp_tpu_torch.ops import bundling
+
+    C = prob["C"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain = bundling.lm_optimize_plain(*args, num_clusters=C,
+                                       iterations=iters)
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    got = float(bundling.lm_cost(runs[0][0], *args[1:],
+                                 num_clusters=C).double().sum())
+    want = float(bundling.lm_cost(plain, *args[1:],
+                                  num_clusters=C).double().sum())
+    rel = abs(got - want) / want
+    n = torch.bincount(args[1].long(), minlength=C).double().cpu().numpy()
+    acc = lm["accepted"].double().cpu().numpy()
+    ops = float(np.sum((1 + acc) * (LM_OPS_PER_JACOBIAN * n
+                                     + LM_OPS_PER_FRAME)
+                       + (iters + 1) * LM_OPS_PER_COST * n
+                       + iters * LM_OPS_PER_STEP))
+    moved = nbytes(*args) + 8 * len(n) + 4 * (len(n) + 1) + nbytes(
+        runs[0][0], lm["accepted"])
+    fn = lambda: bundling.lm_optimize(*args, num_clusters=C,
+                                      iterations=iters)
+    row = kernel_row("LM lm_bundle", "bundling.cu",
+                     "none (line3dpp_tpu/ops/bundling.py:157 lm_optimize, "
+                     "XLA-jitted)", rel, fn, plain_ms, ops, moved)
+    row.update(clusters=C, observations=int(n.sum()), iterations=iters,
+               accepted_steps=int(acc.sum()), ops=ops, bytes=moved)
+    print(f"[LM] lm_bundle, {iters} iterations on {C} clusters: wrapper "
+          f"{row['ms']:.4f} ms, card {row['device_ms']:.4f} ms, bound "
+          f"{row['bound_ms']:.5f} ms ({row['bound_by']}: {ops:.4g} "
+          f"operations, {moved} bytes), plain loop {plain_ms:.1f} ms; "
+          f"total cost against the plain loop's rel {rel:.2e} (limit "
+          f"{LM_PLAIN_RTOL}); accepted steps {int(acc.sum())}", flush=True)
+    check(rel <= LM_PLAIN_RTOL,
+          "the bundling kernel ends at another cost than the plain loop")
+    return row
 
 
 def bundled_cached(views, dev, opts):
     """The 26 cached views under the default ``Config()``: the port's LM on
     JAX's problem against JAX's costs, then the bundled path through the
-    user entry points against JAX's bundled lines."""
+    user entry points against JAX's bundled lines.  Returns the kernels
+    line's row of the bundling kernel."""
     import torch
     import line3dpp_tpu_torch as lt
     from line3dpp_tpu_torch.ops import bundling, kernels
@@ -2014,17 +2080,18 @@ def bundled_cached(views, dev, opts):
           f"total cost at the start {float(cost0.sum()):.3f} (JAX "
           f"{want0:.3f}, rel {rel0:.2e}, limit {LM_COST0_RTOL})", flush=True)
     check(rel0 <= LM_COST0_RTOL, "lm_cost differs from JAX's at the start")
-    runs = []
-    for _ in range(2):
+    runs, lm = [], [{}, {}]
+    for k in range(2):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         params = bundling.lm_optimize(*args, num_clusters=C,
-                                      iterations=iters)
+                                      iterations=iters, stats=lm[k])
         torch.cuda.synchronize()
         runs.append((params, time.perf_counter() - t0))
     cost = bundling.lm_cost(runs[0][0], *args[1:], num_clusters=C)
     rel = abs(float(cost.sum()) - want) / want
-    same = torch.equal(runs[0][0], runs[1][0])
+    same = (torch.equal(runs[0][0], runs[1][0])
+            and torch.equal(lm[0]["accepted"], lm[1]["accepted"]))
     per = (cost.cpu().numpy() - ref["cost"]) / np.maximum(ref["cost"], 1e-6)
     print(f"lm_optimize, {iters} iterations: {runs[0][1]:.3f} s and "
           f"{runs[1][1]:.3f} s; total cost {float(cost.sum()):.3f} (JAX "
@@ -2035,6 +2102,8 @@ def bundled_cached(views, dev, opts):
     check(bool(torch.isfinite(runs[0][0]).all()), "non-finite LM parameters")
     check(rel <= LM_COST_RTOL, "lm_optimize ends at another cost than JAX's")
     check(same, "two lm_optimize runs on the card differ")
+    check(lm[0]["launches"] == 1, "lm_optimize launched no kernel")
+    row = lm_row(prob, args, iters, runs, lm[0])
     if opts.profile:
         profile(lambda: bundling.lm_optimize(*args, num_clusters=C,
                                              iterations=25),
@@ -2085,7 +2154,10 @@ def bundled_cached(views, dev, opts):
     check(abs(len(lines) - len(ref_lines)) <= 0.01 * len(ref_lines),
           "bundled line count off JAX's by more than 1%")
     check(f1[1e-2] >= 0.99, "bundled lines: count_f1 < 0.99 against JAX's")
-    return phases
+    check(launches["lm_bundle"] == 1 and pipe.bundle_stats["launches"] == 1,
+          "the bundled path did not bundle in one kernel launch")
+    print("bundle_stats: " + json.dumps(pipe.bundle_stats), flush=True)
+    return row
 
 
 def check_bin_round_trip(pipe, base: str) -> float:
@@ -3127,7 +3199,7 @@ def main() -> None:
     records = records_phase(views)
 
     # ---- the same views under the default Config(): bundling on
-    bundled_cached(views, dev, opts)
+    rows.append(bundled_cached(views, dev, opts))
     torch.cuda.empty_cache()
 
     # ---- the worldpoint neighbours (COLMAP model) and item 13's options

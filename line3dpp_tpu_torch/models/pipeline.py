@@ -87,6 +87,10 @@ class Line3D:
         self.lines3d: list[FinalLine3D] = []
         # the detector's diagnostic counts of the last add_images call
         self.detect_stats: list[dict] = []
+        # line bundling's counts in the last reconstruct_3d_lines call
+        # (ops.bundling.optimize_cluster_lines' stats; empty when it did
+        # not bundle)
+        self.bundle_stats: dict = {}
         self._last_state: dict = {}
         # opt-in diagnostics, the JAX package's: set to [] before
         # reconstruct_3d_lines to collect one record per bimodal-split
@@ -410,6 +414,7 @@ class Line3D:
         st = self._last_state
         if not st:
             raise RuntimeError("call match_images() first")
+        self.bundle_stats = {}
         cam_ids, cb, est = st["cam_ids"], st["cb"], st["est"]
         V, S = st["mask"].shape
         visibility = max(cfg.visibility_t, 3)
@@ -552,7 +557,8 @@ class Line3D:
         # --- optional bundling of the cluster lines (optimization.cc)
         if cfg.optimize:
             lineP1, _, line_dir = bundling_ops.optimize_cluster_lines(
-                lineP1, lineP2, mc, mv, ms, C, st, cfg, device=self.device)
+                lineP1, lineP2, mc, mv, ms, C, st, cfg, device=self.device,
+                stats=self.bundle_stats)
 
         with obs.span("recon.sweep"):
             # --- project member segments onto their cluster lines

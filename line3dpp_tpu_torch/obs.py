@@ -22,8 +22,10 @@ Kernel launches are counted by :func:`launched`, which every wrapper in
 ``ops/`` calls: it increments ``ops.kernels.LAUNCHES[wrapper]`` and, while
 recording, the launches of the innermost open span.  Host syncs by stage
 are read from the device trace (device-to-host copies launched inside a
-span), and the LM iterations as the count of ``recon.bundle.lm_iteration``
-spans, so neither has a counter here.
+span), so they have no counter here; line bundling's counts (iterations,
+accepted steps, launches) are ``Line3D.bundle_stats``, and the plain loop
+that serves CPU tensors also opens one ``recon.bundle.lm_iteration`` span
+an iteration.
 
 Spans belong to the thread that runs the pipeline; the module keeps one
 stack of open spans.

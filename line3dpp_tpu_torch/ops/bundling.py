@@ -27,12 +27,16 @@ amplified by exp(2 * angle(observed direction, projected line direction))
 (reference: optimization.h:52-167), with Huber(2.0) IRLS weights
 (optimization.h:50, optimization.cc:139).
 
-Per-cluster sums are deterministic: the observations are sorted by cluster
-once and each cluster's run is reduced in order (``torch.segment_reduce``),
-so no floating-point atomics take part and the accept/reject decisions of
-two runs on the same device agree.  All arrays have their exact sizes; the
-JAX package's power-of-two padding is a recompilation workaround and is not
-ported.
+On a CUDA device the whole optimisation is one launch of the kernel
+``csrc/bundling.cu`` (a warp per cluster, every iteration inside it); on the
+CPU :func:`lm_optimize_plain` runs it as a loop of torch operations.
+Per-cluster sums are deterministic on both: the observations are sorted by
+cluster once and each cluster's run is reduced in a fixed order (the plain
+path by ``torch.segment_reduce``, the kernel lane by lane, then across the
+warp), so no floating-point atomics take part and the accept/reject
+decisions of two runs on the same device agree.  All arrays have their
+exact sizes; the JAX package's power-of-two padding is a recompilation
+workaround and is not ported.
 """
 
 from __future__ import annotations
@@ -41,6 +45,7 @@ import numpy as np
 import torch
 
 from .. import obs
+from . import kernels
 from .geometry import cross as cross3
 
 EPS = 1e-12
@@ -241,19 +246,39 @@ class _Problem:
 
 
 def lm_optimize(params0, obs_cluster, KinvT, R, t, p1h, p2h, seg_dir,
-                num_clusters: int, iterations: int = 25) -> torch.Tensor:
+                num_clusters: int, iterations: int = 25,
+                stats: dict | None = None) -> torch.Tensor:
     """Batched Levenberg-Marquardt over independent 4-parameter lines.
 
     params0 (C, 4) initial (s1, s2, s3, w); obs_cluster (O,) the cluster of
     each observation; per observation KinvT (O, 3, 3), R (O, 3, 3), t (O, 3),
     p1h, p2h (O, 3) homogeneous endpoints and seg_dir (O, 2).  Damping
     starts at 1e-3, x 0.33 after an accepted step and x 3 after a rejected
-    one, within [1e-9, 1e6]."""
+    one, within [1e-9, 1e6].
+
+    On CUDA tensors every iteration of every cluster runs in one launch of
+    the kernel ``csrc/bundling.cu`` (:func:`lm_optimize_cuda`); on CPU
+    tensors :func:`lm_optimize_plain` runs the loop.  ``stats``, where
+    given, receives ``accepted`` (C,) int32, each cluster's accepted steps,
+    on the parameters' device, and ``launches``, the kernels launched."""
+    if params0.device.type == "cuda":
+        return lm_optimize_cuda(params0, obs_cluster, KinvT, R, t, p1h, p2h,
+                                seg_dir, num_clusters, iterations, stats)
+    return lm_optimize_plain(params0, obs_cluster, KinvT, R, t, p1h, p2h,
+                             seg_dir, num_clusters, iterations, stats)
+
+
+def lm_optimize_plain(params0, obs_cluster, KinvT, R, t, p1h, p2h, seg_dir,
+                      num_clusters: int, iterations: int = 25,
+                      stats: dict | None = None) -> torch.Tensor:
+    """:func:`lm_optimize` as a loop of plain torch operations, one
+    ``recon.bundle.lm_iteration`` span an iteration."""
     C = num_clusters
     prob = _Problem(obs_cluster, (KinvT, R, t, p1h, p2h, seg_dir), C)
     params = params0.clone()
     lam = torch.full((C,), 1e-3, dtype=params.dtype, device=params.device)
     eye = torch.eye(4, dtype=params.dtype, device=params.device)
+    accepted = torch.zeros(C, dtype=torch.int32, device=params.device)
     # the cost at the current parameters; an accepted step hands its own on
     c_old = prob.cost(prob.residuals(params))
     for _ in range(iterations):
@@ -275,6 +300,77 @@ def lm_optimize(params0, obs_cluster, KinvT, R, t, p1h, p2h, seg_dir,
             params = torch.where(better[:, None], new_params, params)
             c_old = torch.where(better, c_new, c_old)
             lam = torch.where(better, lam * 0.33, lam * 3.0).clamp(1e-9, 1e6)
+            accepted += better
+    if stats is not None:
+        stats.update(accepted=accepted, launches=0)
+    return params
+
+
+def _check_lm_arguments(params0, obs_cluster, arrays, C: int) -> None:
+    """Raise unless the arguments are what the kernel takes: float32
+    (C, 4) parameters, (O,) int32 or int64 clusters and float32
+    observation arrays of their shapes, contiguous, on one CUDA device."""
+    if obs_cluster.dim() != 1:
+        raise ValueError(f"obs_cluster: shape {tuple(obs_cluster.shape)}, "
+                         f"expected (O,)")
+    O = obs_cluster.shape[0]
+    if obs_cluster.dtype not in (torch.int32, torch.int64):
+        raise ValueError(f"obs_cluster: dtype {obs_cluster.dtype}, expected "
+                         f"torch.int32 or torch.int64")
+    want = [("params0", params0, (C, 4))] + [
+        (name, x, (O,) + tail) for name, x, tail in zip(
+            ("KinvT", "R", "t", "p1h", "p2h", "seg_dir"), arrays,
+            ((3, 3), (3, 3), (3,), (3,), (3,), (2,)))]
+    for name, x, shape in want:
+        if x.dtype != torch.float32:
+            raise ValueError(f"{name}: dtype {x.dtype}, expected "
+                             f"torch.float32")
+        if tuple(x.shape) != shape:
+            raise ValueError(f"{name}: shape {tuple(x.shape)}, expected "
+                             f"{shape}")
+    if O >= 2 ** 31:
+        raise ValueError(f"{O} observations: the kernel takes < 2^31")
+    dev = params0.device
+    for name, x in [("obs_cluster", obs_cluster)] + [w[:2] for w in want]:
+        if x.device.type != "cuda" or x.device != dev:
+            raise ValueError(f"{name}: on {x.device}, expected one CUDA "
+                             f"device for every argument")
+        if not x.is_contiguous():
+            raise ValueError(f"{name}: not contiguous")
+
+
+def lm_optimize_cuda(params0, obs_cluster, KinvT, R, t, p1h, p2h, seg_dir,
+                     num_clusters: int, iterations: int = 25,
+                     stats: dict | None = None) -> torch.Tensor:
+    """:func:`lm_optimize` in one launch of ``csrc/bundling.cu``, with no
+    host sync: a warp per cluster over the observations sorted by cluster
+    on the card.  A cluster id outside [0, C) fails a device-side
+    assertion (``torch._assert_async``), as indexing with it would."""
+    C, iterations = int(num_clusters), int(iterations)
+    arrays = (KinvT, R, t, p1h, p2h, seg_dir)
+    _check_lm_arguments(params0, obs_cluster, arrays, C)
+    dev = params0.device
+    if C == 0 or iterations <= 0:
+        if stats is not None:
+            stats.update(accepted=torch.zeros(C, dtype=torch.int32,
+                                              device=dev), launches=0)
+        return params0.clone()
+    ids, order = torch.sort(obs_cluster, stable=True)
+    if len(ids):
+        torch._assert_async((ids[0] >= 0) & (ids[-1] < C))
+    offsets = torch.searchsorted(
+        ids, torch.arange(C + 1, dtype=ids.dtype, device=dev),
+        out_int32=True)
+    params = torch.empty((C, 4), dtype=torch.float32, device=dev)
+    accepted = torch.empty(C, dtype=torch.int32, device=dev)
+    kernels.launch(
+        "l3d_lm_optimize", kernels.ptr(params0), kernels.ptr(order),
+        kernels.ptr(offsets), *(kernels.ptr(x) for x in arrays), C,
+        iterations, kernels.ptr(params), kernels.ptr(accepted),
+        kernels.stream(dev))
+    obs.launched("lm_bundle")
+    if stats is not None:
+        stats.update(accepted=accepted, launches=1)
     return params
 
 
@@ -308,10 +404,26 @@ def problem_from_capture(capture: dict, device) -> dict:
     return out
 
 
+def problem_from_reference(ref: dict, device) -> dict:
+    """:func:`problem_from_capture` of the stored reference
+    ``tests/data/torch_bundling_26_jax_reference.npz`` (``make_torch_
+    bundling_reference.py``), which keeps each view's K^-T, R and t once
+    (``cam_rows``, picked by ``obs_cam``) and the endpoints' pixels."""
+    cam = ref["cam_rows"][ref["obs_cam"]]
+    ones = np.ones((len(cam), 1), np.float32)
+    return problem_from_capture(dict(
+        params0=ref["params0"], obs_cluster=ref["obs_cluster"],
+        Ko=cam[:, 0:9].reshape(-1, 3, 3), Ro=cam[:, 9:18].reshape(-1, 3, 3),
+        to=cam[:, 18:21], p1h=np.concatenate([ref["p1"], ones], 1),
+        p2h=np.concatenate([ref["p2"], ones], 1), d2=ref["d2"],
+        C=len(ref["params0"])), device)
+
+
 @obs.spanned("recon.bundle")
 def optimize_cluster_lines(lineP1, lineP2, mc, mv, ms, C, st, config,
                            iterations: int | None = None,
                            device: str | torch.device | None = None,
+                           stats: dict | None = None,
                            _capture: dict | None = None):
     """Refine the cluster lines by minimising the 2D endpoint-to-projected-
     line reprojection error, cameras constant (reference:
@@ -324,7 +436,10 @@ def optimize_cluster_lines(lineP1, lineP2, mc, mv, ms, C, st, config,
     defaults to ``config.max_iter_optim`` (the reference's Ceres cap,
     commons.h:88); ``_capture`` receives the assembled LM inputs.  The
     optimisation runs on ``device``: a CUDA device by default, the CPU only
-    when asked with ``device="cpu"``."""
+    when asked with ``device="cpu"``.  ``stats``, where given, receives the
+    counts of the optimisation: ``clusters``, ``observations``,
+    ``iterations``, ``accepted_steps`` (summed over the clusters) and
+    ``launches`` (1 on a CUDA device, 0 on the CPU)."""
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
@@ -333,31 +448,46 @@ def optimize_cluster_lines(lineP1, lineP2, mc, mv, ms, C, st, config,
         device = "cuda"
     cb = st["cb"]
     p = st["segs"][mv, ms]                              # (O, 4)
-    Ko = np.transpose(np.linalg.inv(cb.K[mv]), (0, 2, 1)).astype(np.float32)
+    KinvT = np.transpose(np.linalg.inv(cb.K), (0, 2, 1))   # once a view
     ones = np.ones((len(p), 1), np.float32)
     d2 = p[:, 2:4] - p[:, 0:2]
     d2 = d2 / np.maximum(np.linalg.norm(d2, axis=1, keepdims=True), EPS)
-    to_dev = lambda a, dt=np.float32: torch.from_numpy(
-        np.ascontiguousarray(a, dtype=dt)).to(device)
+    f32 = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32))
 
-    m0, v0 = plucker_from_endpoints(to_dev(lineP1), to_dev(lineP2))
+    # the starting parameters on the host: a few dozen element-wise
+    # operations on C lines, each of which would be a launch on the card
+    m0, v0 = plucker_from_endpoints(f32(lineP1), f32(lineP2))
     s0, w0 = params_from_plucker(m0, v0)
-    inputs = dict(
-        params0=torch.cat([s0, w0[:, None]], dim=1),
-        obs_cluster=to_dev(mc, np.int64), Ko=to_dev(Ko),
-        Ro=to_dev(cb.R[mv]), to=to_dev(cb.t[mv]),
-        p1h=to_dev(np.concatenate([p[:, 0:2], ones], 1)),
-        p2h=to_dev(np.concatenate([p[:, 2:4], ones], 1)), d2=to_dev(d2))
+    host = [torch.cat([s0, w0[:, None]], dim=1), f32(KinvT[mv]),
+            f32(cb.R[mv]), f32(cb.t[mv]),
+            f32(np.concatenate([p[:, 0:2], ones], 1)),
+            f32(np.concatenate([p[:, 2:4], ones], 1)), f32(d2)]
+    # one copy of every float array to the device, and one of the clusters
+    flat = torch.cat([a.reshape(-1) for a in host]).to(device)
+    parts = [x.view(a.shape) for x, a in zip(
+        flat.split([a.numel() for a in host]), host)]
+    inputs = dict(zip(LM_ARRAYS[:1] + LM_ARRAYS[2:], parts),
+                  obs_cluster=torch.from_numpy(
+                      np.ascontiguousarray(mc, np.int64)).to(device))
     if iterations is None:
         iterations = int(config.max_iter_optim)
     if _capture is not None:
         _capture.update({k: v.cpu().numpy() for k, v in inputs.items()}, C=C)
+    lm = {}
     params = lm_optimize(*(inputs[k] for k in LM_ARRAYS), num_clusters=C,
-                         iterations=int(iterations))
+                         iterations=int(iterations), stats=lm)
 
-    m, v = plucker_from_params(params[:, :3], params[:, 3])
-    m = m.cpu().numpy().astype(np.float64)
-    v = v.cpu().numpy().astype(np.float64)
+    # one copy to the host: the parameters and each cluster's accepted
+    # steps (at most `iterations`, exact in float32)
+    out = torch.cat([params, lm["accepted"][:, None].float()], 1).cpu()
+    m, v = plucker_from_params(out[:, :3], out[:, 3])
+    m = m.numpy().astype(np.float64)
+    v = v.numpy().astype(np.float64)
+    if stats is not None:
+        stats.update(clusters=C, observations=len(mc),
+                     iterations=int(iterations),
+                     accepted_steps=int(out[:, 4].long().sum()),
+                     launches=lm["launches"])
     vn = v / np.maximum(np.linalg.norm(v, axis=1, keepdims=True), EPS)
     # closest point of the new line to the origin: P0 = v x m / |v|^2
     P0 = np.cross(v, m) / np.maximum(np.sum(v * v, axis=1, keepdims=True),

@@ -34,7 +34,8 @@ from line3dpp_tpu.camera import rotation_from_rpy
 from line3dpp_tpu.ops import bundling as jb
 import line3dpp_tpu_torch as lt
 from line3dpp_tpu_torch.camera import CameraBatch
-from line3dpp_tpu_torch.ops import bundling
+from line3dpp_tpu_torch import obs
+from line3dpp_tpu_torch.ops import bundling, kernels
 
 
 def _scene(rng, n_lines=6, n_views=5):
@@ -215,6 +216,87 @@ def test_lm_optimize_reaches_jax_cost(problem, iterations):
     again = bundling.lm_optimize(*args, num_clusters=p["C"],
                                  iterations=iterations)
     np.testing.assert_array_equal(again.numpy(), params.numpy())
+
+
+def test_lm_optimize_on_cpu_tensors_runs_the_plain_loop(problem,
+                                                       monkeypatch):
+    """CPU tensors take ``lm_optimize_plain``: no kernel library is
+    loaded, no kernel launch is counted, and each iteration still records
+    its ``recon.bundle.lm_iteration`` span."""
+    def refuse():
+        raise AssertionError("the kernel library was loaded")
+
+    monkeypatch.setattr(kernels, "library", refuse)
+    p = bundling.problem_from_capture(problem["jcap"], "cpu")
+    args = [p[k] for k in bundling.LM_ARRAYS]
+    before = kernels.LAUNCHES["lm_bundle"]
+    stats = {}
+    obs.clear()
+    with obs.recording():
+        got = bundling.lm_optimize(*args, num_clusters=p["C"], iterations=4,
+                                   stats=stats)
+    spans = obs.summary(obs.records()[-1])
+    obs.clear()
+    assert kernels.LAUNCHES["lm_bundle"] == before
+    assert spans["recon.bundle.lm_iteration"]["count"] == 4
+    assert stats["launches"] == 0
+    acc = stats["accepted"]
+    assert acc.dtype == torch.int32 and acc.shape == (p["C"],)
+    assert 0 < int(acc.sum()) and int(acc.max()) <= 4
+    np.testing.assert_array_equal(
+        got.numpy(), bundling.lm_optimize_plain(
+            *args, num_clusters=p["C"], iterations=4).numpy())
+
+
+def _kernel_arguments(problem):
+    p = bundling.problem_from_capture(problem["jcap"], "cpu")
+    return [p[k] for k in bundling.LM_ARRAYS], p["C"]
+
+
+@pytest.mark.parametrize("index,bad,match", [
+    (0, lambda x: x.double(), "params0: dtype"),
+    (0, lambda x: x[:-1], "params0: shape"),
+    (1, lambda x: x.float(), "obs_cluster: dtype"),
+    (1, lambda x: x[:, None], "obs_cluster: shape"),
+    (2, lambda x: x.half(), "KinvT: dtype"),
+    (3, lambda x: x[:, :2], "R: shape"),
+    (4, lambda x: x[:-1], "t: shape"),
+    (7, lambda x: x.double(), "seg_dir: dtype"),
+    (5, lambda x: x.t().contiguous().t(), "p1h: on cpu"),
+], ids=["params0-dtype", "params0-shape", "cluster-dtype", "cluster-shape",
+        "KinvT-dtype", "R-shape", "t-shape", "seg_dir-dtype", "cpu"])
+def test_the_kernel_wrapper_checks_its_arguments_without_a_card(
+        problem, monkeypatch, index, bad, match):
+    """``lm_optimize_cuda`` refuses what the kernel does not take before
+    it touches the card or loads the library (types and shapes first, then
+    the device)."""
+    def refuse():
+        raise AssertionError("the kernel library was loaded")
+
+    monkeypatch.setattr(kernels, "library", refuse)
+    args, C = _kernel_arguments(problem)
+    args[index] = bad(args[index])
+    if match.endswith("on cpu"):
+        match = "on cpu, expected one CUDA device"
+    with pytest.raises(ValueError, match=match):
+        bundling.lm_optimize_cuda(*args, num_clusters=C, iterations=2)
+
+
+def test_optimize_cluster_lines_fills_its_stats(problem):
+    stats, cap = {}, {}
+    bundling.optimize_cluster_lines(
+        problem["pert1"], problem["pert2"], problem["mc"], problem["mv"],
+        problem["ms"], problem["C"], problem["st"], lt.Config(),
+        iterations=25, device="cpu", stats=stats, _capture=cap)
+    want = {}
+    bundling.lm_optimize(*(torch.from_numpy(cap[k])
+                           for k in bundling.LM_ARRAYS),
+                         num_clusters=cap["C"], iterations=25, stats=want)
+    assert stats == dict(clusters=problem["C"],
+                         observations=len(problem["mc"]), iterations=25,
+                         accepted_steps=int(want["accepted"].sum()),
+                         launches=0)
+    assert 0 < stats["accepted_steps"] <= 25 * problem["C"]
 
 
 def test_optimize_cluster_lines_recovers_lines_like_jax(problem):

@@ -361,3 +361,24 @@ def test_detection_records_its_rounds():
     assert got["lsd.round"]["count"] == 3
     assert got["lsd.consume"]["count"] == 2
     assert len(pipe._views[0].segments) > 0
+
+
+def test_the_pipeline_keeps_the_bundle_stats():
+    """``Line3D.bundle_stats`` holds the last reconstruction's bundling
+    counts (the CPU's plain loop: no launch), and is emptied by a
+    reconstruction that does not bundle."""
+    pipe = lt.Line3D(lt.Config(**CONFIG), device="cpu")
+    for cam_id, cam, segs in _scene():
+        pipe.add_view(cam_id, cam, segs)
+    pipe.match_images()
+    assert pipe.bundle_stats == {}
+    lines = pipe.reconstruct_3d_lines()
+    stats = pipe.bundle_stats
+    assert set(stats) == {"clusters", "observations", "iterations",
+                          "accepted_steps", "launches"}
+    assert stats["iterations"] == ITERATIONS and stats["launches"] == 0
+    assert len(lines) <= stats["clusters"] <= stats["observations"]
+    assert 0 < stats["accepted_steps"] <= ITERATIONS * stats["clusters"]
+    pipe.config = lt.Config(**dict(CONFIG, optimize=False))
+    pipe.reconstruct_3d_lines()
+    assert pipe.bundle_stats == {}
