@@ -10,7 +10,8 @@
    counts the reject paths of K1 (SASS instructions per candidate) and K2
    (per slot pair) with ``cuobjdump -sass``, where the toolkit has it;
    holds ``sincosf`` (K8's gate) against ``sinf`` and ``cosf`` (K9's) bit
-   for bit on all 2^32 float32 arguments (``SINCOS_CHECK_CU``).
+   for bit on all 2^32 float32 arguments (``SINCOS_CHECK_CU``), and the
+   card's ``expf`` (the collinearity kernel's) against ``torch.exp``.
 3. Cached segments to lines: loads the 26 bundled views and holds kernels
    K1-K3 against their plain PyTorch versions on the card at that path's
    shapes (26 views, S = 3000, N = 16, k = 10, M = 160), timing both with
@@ -30,7 +31,13 @@
    reference's (``perform_rdd``, ``collinearity_t``) and the repository's
    compensations (``split_bimodal_t``, ``split_strong_min``,
    ``cluster_strong_min``, ``match_rel_cut``) (``features_phase``, the
-   collinearity and RDD calls profiled), each held to the main path's
+   collinearity and RDD calls profiled; the collinearity kernel launched
+   once a reconstruction, and at most 8 device events and 2
+   device-to-host copies inside ``recon.collinearity`` in a profiled
+   reconstruction of the pipeline's own; the collinearity kernel on the
+   call's inputs against the plain path bit for bit, twice, its kernels
+   line row ``CL collinear_edges`` with its bound, ``CL_OPS_*``, and the
+   plain path's time), each held to the main path's
    bounds (``SAME_*``) against ``tests/data/torch_colmap_26_jax_reference.npz``
    and ``torch_features_jax_reference.npz`` (written by
    ``tests/make_torch_colmap_reference.py`` and
@@ -139,7 +146,8 @@
    kernels on the synthetic grids), one ``{"kernels": [...]}`` line
    (``launches``: the rescue path's run; ``launches_default``: the
    ``Config(optimize=False)`` run, which launches no K10; K1's and
-   K2's general forms: the all-matches run's; neither
+   K2's general forms: the all-matches run's; the collinearity kernel:
+   item 13's reference run, the only path that reaches it; neither
    launches K9's gate_pixels form or K10's 4-band form;
    ``launches_rect_improve``: the rect_improve detection), the nvidia-smi
    line, and last
@@ -288,6 +296,25 @@ OFF_PATH = ("apply_merge_dense", "gather_labels", "gate_pixels",
 RESCUE_ONLY = ("rescue_counts",)
 # the kernels that only a Config with bundling (optimize) launches
 BUNDLE_ONLY = ("lm_bundle",)
+# ... and with collinearity edges (collinearity_t > 0)
+COLLINEAR_ONLY = ("collinear_edges",)
+# the collinearity kernel's operations: the pre-test (two numerators of 5
+# and a comparison each) for every pair of segments both masked in and
+# with an estimate, the exact 2D test (the numerators, four divisions and
+# comparisons, the overlap projection and its clamps) for each pair that
+# passes it, the 3D similarity (four distances, four exponentials, the
+# minima) for each pair that passes the 2D test; and the plain path's
+# count, which tests every pair i < j exactly (the every-pair bound)
+CL_OPS_PRETEST = 12
+CL_OPS_EXACT = 60
+CL_OPS_SIMILARITY = 110
+# the collinearity kernel's pre-test (csrc/collinearity.cu kMargin, kTiny)
+# keeps a pair while |num| <= fl(fl(t Lc) * MARGIN) for both of the
+# column's endpoints against the row's line: fl(|num| / Lc) < t implies
+# |num| < t Lc <= fl(t Lc) / (1 - 2^-24), below that bound while fl(t Lc)
+# is a normal float (CL_PRETEST_TINY); else it keeps the pair
+CL_PRETEST_MARGIN = 1.0 + 2.0**-20
+CL_PRETEST_TINY = 2.0**-126
 # the general forms of K1 (k > 16) and K2 (M > 1024): the images paths run
 # k = 10, M <= 1024; all matches (knn <= 0) and knn = 20 run them
 GENERAL_FORMS = ("match_pairs_all", "score_matches_all")
@@ -297,7 +324,9 @@ STRIPE_ACTIVE = 0.47
 # K8 gates with sincosf, K9 with sinf and cosf: their bits
 # must agree for every float32 argument, so that K8's newpix equals K9's on
 # any input.  This kernel compares them on all 2^32 bit patterns (a NaN
-# result matches a NaN), built with the package's nvcc flags.
+# result matches a NaN), built with the package's nvcc flags.  The same
+# library maps expf over an array, for the collinearity kernel's weights,
+# which must be torch.exp's bits (expf_differences).
 SINCOS_CHECK_CU = r"""
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -329,6 +358,21 @@ extern "C" int l3d_check_sincos(unsigned long long* bad, unsigned int* first,
                                 void* stream) {
   sincos_check<<<132 * 16, 256, 0, (cudaStream_t)stream>>>(z1, z2, bad,
                                                           first);
+  return (int)cudaGetLastError();
+}
+
+__global__ void expf_map(const float* x, float* y, long long n) {
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += stride)
+    y[i] = expf(x[i]);
+}
+
+// y = expf(x), the collinearity kernel's exponential, for comparison with
+// torch.exp
+extern "C" int l3d_expf(const float* x, float* y, long long n,
+                        void* stream) {
+  expf_map<<<132 * 16, 256, 0, (cudaStream_t)stream>>>(x, y, n);
   return (int)cudaGetLastError();
 }
 """
@@ -397,6 +441,23 @@ def device_busy_us(events) -> tuple[float, int]:
         busy += max(0.0, b - max(a, end))
         end = max(end, b)
     return busy, len(device)
+
+
+def span_device_events(events, name: str) -> tuple[int, int]:
+    """How many device events of ``events`` a runtime call inside a span
+    ``name`` launched (the same correlation id), and how many of them copy
+    from the device to the host, as the benchmark's trace reader counts."""
+    spans = [(e["ts"], e["ts"] + e["dur"]) for e in events
+             if e.get("cat") == "user_annotation" and e.get("name") == name]
+    launch = {e["args"]["correlation"]: e["ts"] for e in events
+              if e.get("cat") in ("cuda_runtime", "cuda_driver")
+              and "correlation" in e.get("args", {})}
+    inside = [e for e in events
+              if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+              and any(a <= launch.get(e.get("args", {}).get("correlation"),
+                                      -1.0) <= b for a, b in spans)]
+    return len(inside), sum(1 for e in inside if e.get("cat") == "gpu_memcpy"
+                            and "DtoH" in e.get("name", ""))
 
 
 def device_ms(fn, reps: int = 20) -> float:
@@ -889,6 +950,9 @@ def sincos_library(start: bool = False):
     cdll.l3d_check_sincos.argtypes = [ctypes.c_void_p] * 2 + \
         [ctypes.c_uint] * 2 + [ctypes.c_void_p]
     cdll.l3d_check_sincos.restype = ctypes.c_int
+    cdll.l3d_expf.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_longlong,
+                                                      ctypes.c_void_p]
+    cdll.l3d_expf.restype = ctypes.c_int
     return cdll
 
 
@@ -904,6 +968,32 @@ def sincos_differences(dev) -> tuple[int, int]:
         kernels.ptr(bad), kernels.ptr(first), 0, 0, kernels.stream(dev))
     check(rc == 0, f"the sincosf check did not launch: CUDA error {rc}")
     return int(bad), (int(first) & 0xFFFFFFFF) if int(bad) else -1
+
+
+def expf_differences(dev, chunk: int = 1 << 28) -> tuple[int, int]:
+    """How many float32 arguments the card's ``expf`` (the collinearity
+    kernel's) and ``torch.exp`` give other bits for (a NaN matches a NaN),
+    over all 2^32 bit patterns, and the bits of the first (-1: none)."""
+    import torch
+    from line3dpp_tpu_torch.ops import kernels
+
+    lib = sincos_library()
+    bad, first = 0, -1
+    for lo in range(0, 1 << 32, chunk):
+        x = torch.arange(lo, lo + chunk, dtype=torch.int64, device=dev).to(
+            torch.int32).view(torch.float32)
+        y = torch.empty_like(x)
+        rc = lib.l3d_expf(kernels.ptr(x), kernels.ptr(y), x.numel(),
+                          kernels.stream(dev))
+        check(rc == 0, f"the expf check did not launch: CUDA error {rc}")
+        want = torch.exp(x)
+        differ = ((y.view(torch.int32) != want.view(torch.int32))
+                  & ~(torch.isnan(y) & torch.isnan(want)))
+        n = int(differ.sum())
+        if n and first < 0:
+            first = lo + int(torch.nonzero(differ)[0])
+        bad += n
+    return bad, first
 
 
 def ptxas_report(build_log: str) -> list[str]:
@@ -1674,7 +1764,8 @@ def images_to_lines(images, cams, gt, ref, dev, rescue: bool = False):
         # gate_pixels form run in the rescue cascade only
         check(n > 0 or name in OFF_PATH or name in GENERAL_FORMS
               or (name in RESCUE_ONLY and not rescue)
-              or (name in BUNDLE_ONLY and not cfg.optimize),
+              or (name in BUNDLE_ONLY and not cfg.optimize)
+              or (name in COLLINEAR_ONLY and not cfg.collinearity_t > 0),
               f"kernel {name} was not launched on the images -> lines path")
     check(all(launches[name] == 0 for name in OFF_PATH),
           "detection launched K5 or K6's gather_labels form")
@@ -1799,7 +1890,8 @@ def cli_phase(images, cams, gt, ref, seg_views, geo_lines, dev) -> dict:
     check(first.pipe.device.type == "cuda", "the CLI did not run on the card")
     check(all(n > 0 for k, n in launches[0].items()
               if k not in OFF_PATH + RESCUE_ONLY + GENERAL_FORMS
-              and (cfg.optimize or k not in BUNDLE_ONLY)),
+              and (cfg.optimize or k not in BUNDLE_ONLY)
+              and (cfg.collinearity_t > 0 or k not in COLLINEAR_ONLY)),
           "the CLI's first run did not launch every kernel of its path")
     check(len(first.pipe.detect_stats) == len(images),
           "the CLI's first run did not detect every view")
@@ -1934,10 +2026,12 @@ def features_phase(dev) -> dict:
     each configuration there (the reference's options ``perform_rdd`` and
     ``collinearity_t``; the repository's compensations) on the 26 cached
     views; the collinearity and RDD calls of the first are then profiled
-    again on the inputs the pipeline gave them."""
+    again on the inputs the pipeline gave them, and its reconstruction
+    once more, for the device events and launches inside
+    ``recon.collinearity``."""
     import torch
     import line3dpp_tpu_torch as lt
-    from line3dpp_tpu_torch.ops import collinearity, rdd
+    from line3dpp_tpu_torch.ops import collinearity, kernels, rdd
     from line3dpp_tpu_torch.utils.testdata import load_views
 
     if not os.path.exists(FEATURES_NPZ):
@@ -1969,6 +2063,9 @@ def features_phase(dev) -> dict:
                                                   v.height), v.segments)
             calls.clear()
             phases = timed_pipeline(pipe)
+            phases["launches"] = {k: kernels.LAUNCHES[k] for k in (
+                "match_pairs", "score_matches", "gather_target_estimates",
+                "collinear_edges")}
             phases["count_f1"] = held_lines(
                 [l.segments3d for l in pipe.lines3d],
                 split_lines(ref, name + "_"),
@@ -1980,9 +2077,16 @@ def features_phase(dev) -> dict:
             for fname, (fn, args, fkw) in calls.items():
                 _, events, wall = device_events(lambda: fn(*args, **fkw))
                 busy, n_dev = device_busy_us(events)
-                phases[fname] = dict(wall_ms=1e3 * wall,
-                                     device_ms=busy / 1e3,
-                                     device_events=n_dev)
+                phases[fname] = dict(
+                    wall_ms=1e3 * wall, device_ms=busy / 1e3,
+                    device_events=n_dev, d2h=sum(
+                        1 for e in events if e.get("cat") == "gpu_memcpy"
+                        and "DtoH" in e.get("name", "")))
+            n_cl = int("collinear_edges" in calls)
+            check(phases["launches"]["collinear_edges"] == n_cl,
+                  f"item 13, {name}: the pipeline launched the collinearity "
+                  f"kernel {phases['launches']['collinear_edges']} times, "
+                  f"not {n_cl}")
             if "rdd_edges" in calls:
                 args = calls["rdd_edges"][1]
                 phases["rdd_graph"] = dict(nodes=int(args[3]),
@@ -1990,6 +2094,26 @@ def features_phase(dev) -> dict:
                 e = calls["collinear_edges"][1]
                 phases["collinear_edges"]["edges"] = int(len(
                     calls["collinear_edges"][0](*e)[0]))
+                # the pipeline's own collinearity call, profiled in a
+                # second reconstruct_3d_lines of the same matches
+                kernels.reset_launches()
+                _, events, _ = device_events(pipe.reconstruct_3d_lines)
+                n_dev, d2h = span_device_events(events, "recon.collinearity")
+                cl = phases["recon.collinearity"] = dict(
+                    device_events=n_dev, d2h=d2h,
+                    launches=kernels.LAUNCHES["collinear_edges"])
+                check(cl["launches"] == 1, f"item 13, {name}: a profiled "
+                      f"reconstruct_3d_lines launched the collinearity "
+                      f"kernel {cl['launches']} times, not once")
+                check(n_dev <= 8 and d2h <= 2,
+                      f"item 13, {name}: recon.collinearity made {n_dev} "
+                      f"device events and {d2h} device-to-host copies in "
+                      f"the pipeline's run (at most 8 and 2)")
+                if "kernel_row" not in out:
+                    out["kernel_row"] = collinearity_row(e)
+                    # the main path's count: the pipeline's run above
+                    out["kernel_row"]["pipeline_launches"] = \
+                        phases["launches"]["collinear_edges"]
             out[name] = phases
             print(f"item 13, {name}: " + json.dumps(phases), flush=True)
             del pipe
@@ -1998,6 +2122,141 @@ def features_phase(dev) -> dict:
         for mod, name, orig in origs:
             setattr(mod, name, orig)
     return out
+
+def collinear_pretest_threshold(lc, t_px):
+    """The collinearity kernel's pre-test threshold of a row segment of
+    clamped length ``lc`` (a float32 tensor): ``fl(fl(lc t) *
+    CL_PRETEST_MARGIN)``, +inf where ``fl(lc t)`` is not a normal float (or
+    NaN)."""
+    import torch
+
+    f32 = torch.float32
+    tl = lc * t_px
+    return torch.where(tl >= torch.tensor(CL_PRETEST_TINY, dtype=f32),
+                       tl * torch.tensor(CL_PRETEST_MARGIN, dtype=f32),
+                       torch.tensor(float("inf"), dtype=f32))
+
+
+def collinear_pretest_keeps(segments, mask, t_px):
+    """(B, S, S) bool: the collinearity kernel's pre-test of the pairs of B
+    views in float32 torch, the same operations in the same order.  Row i
+    keeps column j while both of j's endpoints lie within the threshold of
+    i's line by the distance's numerator (the exact test's own), and both
+    are masked in; False only where ``collinearity.collinear_pairs`` is
+    False too.  ``t_px`` is a float or a float32 tensor of the grid's
+    shape (a threshold for each pair)."""
+    import torch
+    from line3dpp_tpu_torch.ops import collinearity as cl
+
+    x1, y1, x2, y2 = segments.unbind(-1)
+    a = lambda t: t[:, :, None]            # noqa: E731  row segment i
+    b = lambda t: t[:, None, :]            # noqa: E731  column segment j
+    dx = x2 - x1
+    dy = y2 - y1
+    thr = collinear_pretest_threshold(
+        a(torch.clamp_min(cl._sqrt(dx * dx + dy * dy), cl.EPS)), t_px)
+
+    def num(px, py):
+        return torch.abs(a(dy) * px - a(dx) * py + a(x2 * y1) - a(y2 * x1))
+
+    return ((num(b(x1), b(y1)) <= thr) & (num(b(x2), b(y2)) <= thr)
+            & a(mask) & b(mask))
+
+
+def same_edges(a, b) -> bool:
+    """Two ``collinear_edges`` results: the same keys in the same order and
+    the same weight bits."""
+    return (all(np.array_equal(x, y) for x, y in zip(a[:3], b[:3]))
+            and np.array_equal(a[3].view(np.int32), b[3].view(np.int32)))
+
+
+def collinearity_row(args) -> dict:
+    """The kernels line's row of the collinearity kernel on the inputs the
+    pipeline gave ``collinear_edges`` (the 26 cached views under the
+    reference's options): its edges against the plain path's on the card
+    (keys, order and weight bits), its card time by the count pass, the
+    scan and the write pass queued without the wrapper's two reads, its
+    bound from the work these inputs need (``CL_OPS_*``: the pre-test for
+    every pair of eligible segments, the exact 2D test for its survivors,
+    the similarity for the 2D pairs), and the plain path's time."""
+    import torch
+    from line3dpp_tpu_torch.ops import collinearity as cl
+    from line3dpp_tpu_torch.ops import kernels
+
+    (segs, mask, P1, P2, d1, d2, valid, k_reg, med, med_scene, t_px,
+     min_aff) = args
+    got = cl.collinear_edges_cuda(*args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = cl.collinear_edges_plain(*args)
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    check(same_edges(got, want), "the collinearity kernel's edges differ "
+                                 "from the plain path's")
+    check(same_edges(got, cl.collinear_edges_cuda(*args)),
+          "two calls of the collinearity kernel differ")
+
+    # the work these inputs need
+    V, S = mask.shape
+    ok = mask & valid
+    n = ok.sum(1).double()
+    eligible = float((n * (n - 1) / 2).sum())
+    upper = torch.ones((S, S), dtype=torch.bool, device=segs.device).triu_(1)
+    survivors = pairs2d = 0
+    for v in range(V):
+        sl = slice(v, v + 1)
+        survivors += int((collinear_pretest_keeps(segs[sl], ok[sl], t_px)
+                          & upper).sum())
+        pairs2d += int((cl.collinear_pairs(segs[sl], ok[sl], t_px)
+                        & upper).sum())
+    ops = (eligible * CL_OPS_PRETEST + survivors * CL_OPS_EXACT
+           + pairs2d * CL_OPS_SIMILARITY)
+    every_pair = V * S * (S - 1) / 2 * CL_OPS_EXACT
+    moved = nbytes(segs, mask, P1, P2, d1, d2, valid, k_reg, med) \
+        + 16 * len(got[0])
+
+    # the launches alone, into buffers of the known size
+    dev = segs.device
+    cut = (torch.clamp_max(med, med_scene) if med_scene > cl.EPS else med)
+    T = -(-S // cl.TILE)
+    counts = torch.empty((V, S, T), dtype=torch.int64, device=dev)
+    out = torch.empty((len(got[0]), 4), dtype=torch.int32, device=dev)
+    inputs = [kernels.ptr(x) for x in (segs, mask, P1, P2, d1, d2, valid,
+                                       k_reg, cut)]
+    opts = (V, S, T, float(t_px), float(min_aff))
+
+    def count():
+        kernels.launch("l3d_collinear_count", *inputs, *opts,
+                       kernels.ptr(counts), kernels.stream(dev))
+
+    def card():
+        count()
+        ends = cl.piece_ends(counts)
+        kernels.launch("l3d_collinear_write", *inputs, *opts,
+                       kernels.ptr(counts), kernels.ptr(ends),
+                       kernels.ptr(out), kernels.stream(dev))
+
+    row = kernel_row(
+        "CL collinear_edges", "collinearity.cu",
+        "none (line3dpp_tpu/ops/collinearity.py collinear_pairs and "
+        "collinear_similarity: jnp under XLA)", 0.0,
+        lambda: cl.collinear_edges_cuda(*args), plain_ms, ops, moved,
+        card=card)
+    row.update(edges=int(len(got[0])), views=V, segments=S,
+               eligible_pairs=eligible, pretest_survivors=survivors,
+               pairs_2d=pairs2d, ops=ops, bytes=moved,
+               count_device_ms=device_ms(count),
+               every_pair_bound_ms=bound(every_pair, moved)[0])
+    print(f"[CL] collinear_edges on {V} views of {S} segments: {row['edges']}"
+          f" edges, bit-equal to the plain path; wrapper {row['ms']:.4f} ms,"
+          f" card {row['device_ms']:.4f} ms (count pass "
+          f"{row['count_device_ms']:.4f}), bound {row['bound_ms']:.5f} ms "
+          f"({row['bound_by']}: {eligible:.4g} eligible pairs, {survivors} "
+          f"pre-test survivors, {pairs2d} 2D pairs; every pair exact "
+          f"{row['every_pair_bound_ms']:.4f} ms), plain path {plain_ms:.1f} "
+          f"ms", flush=True)
+    return row
+
 
 def lm_reference(dev):
     """The bundling reference file: the Levenberg-Marquardt problem the JAX
@@ -3110,6 +3369,14 @@ def main() -> None:
           + f", in {time.perf_counter() - t0:.2f} s", flush=True)
     check(n_bad == 0, "sincosf and sinf/cosf differ: K8's gate may "
                       "differ from K9's")
+    t0 = time.perf_counter()
+    n_bad, first_bad = expf_differences(dev)
+    print(f"[CL] expf against torch.exp on all 2^32 float32 arguments: "
+          f"{n_bad} differ"
+          + (f" (the first {first_bad:#010x})" if n_bad else "")
+          + f", in {time.perf_counter() - t0:.2f} s", flush=True)
+    check(n_bad == 0, "expf and torch.exp differ: the collinearity "
+                      "kernel's weights may differ from the plain path's")
 
     # ---- each kernel against its plain version at main-path shapes
     views = load_views()
@@ -3204,6 +3471,7 @@ def main() -> None:
 
     # ---- the worldpoint neighbours (COLMAP model) and item 13's options
     item11_13 = {"colmap": colmap_phase(dev), "features": features_phase(dev)}
+    rows.append(item11_13["features"].pop("kernel_row"))
 
     # ---- images -> lines on the full-size facade
     if not os.path.exists(SCENE2_NPZ):
@@ -3281,7 +3549,7 @@ def main() -> None:
         # launches: the rescue path, which runs every kernel; also those of
         # the default Config()'s detection (no K10)
         key = r["name"].split()[1]
-        r["launches"] = launches[key]
+        r["launches"] = r.pop("pipeline_launches", launches[key])
         r["launches_default"] = default_launches[key]
         r["launches_rect_improve"] = rect_launches[key]
         if key in ("match_pairs_all", "score_matches_all"):

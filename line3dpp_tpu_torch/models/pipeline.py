@@ -452,7 +452,7 @@ class Line3D:
 
         # optional collinearity edges: same-view collinear segment pairs
         # with consistent 3D estimates (line3D.cc:1904-1974), compacted on
-        # the device a few views at a time
+        # the device (on the card by one kernel, csrc/collinearity.cu)
         if cfg.collinearity_t > 0:
             med = st["median_depth"].cpu().numpy()
             meds = np.sort(med[med > EPS])

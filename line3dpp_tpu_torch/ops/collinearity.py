@@ -7,22 +7,29 @@ broken 2D detections of one physical line can end up in the same cluster
 (reference: View::findCollinearSegments view.cc:212-264, edge emission
 line3D.cc:1904-1974).  The counterpart of ``line3dpp_tpu.ops.collinearity``.
 
-Plain torch on the pipeline's device.  :func:`collinear_pairs` and
-:func:`collinear_similarity` are element-wise over a (B, S, S) grid of a
-batch of views, in the JAX functions' expression order, so a pair's
-decision and its weight are the same float32 function.
-:func:`collinear_edges` runs them over the views a few at a time and
-compacts each batch's ``i < j`` edges on the device; only those edges go
-to the host.
+:func:`collinear_pairs` and :func:`collinear_similarity` are plain torch,
+element-wise over a (B, S, S) grid of a batch of views, in the JAX
+functions' expression order, so a pair's decision and its weight are the
+same float32 function.  :func:`collinear_edges` gives every view's ``i < j``
+edges: on CUDA tensors from the kernel ``csrc/collinearity.cu``
+(:func:`collinear_edges_cuda`: the upper triangle of every view's pairs in
+tiles, a pre-test, then the same float32 functions, the edges compacted in
+row order on the card and read back once), on CPU tensors from
+:func:`collinear_edges_plain`, which runs the plain functions over the
+views a few at a time and compacts each batch on the device.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .. import obs
+from . import kernels
 
 EPS = 1e-12
+# rows and columns of a block of the kernel (csrc/collinearity.cu kTile)
+TILE = 128
 # float32 planes of (B, S, S) alive at once in collinear_similarity, and
 # the bytes a batch of views may hold in them
 _PLANES = 24
@@ -130,16 +137,101 @@ def collinear_similarity(est_P1, est_P2, est_d1, est_d2, est_valid, collin,
     return torch.where(edge, sim, torch.zeros_like(sim)), edge
 
 
+def piece_ends(counts: torch.Tensor) -> torch.Tensor:
+    """The ends of the kernel's output pieces: the inclusive scan of the
+    (V, S, T) edge counts of (view, row, column tile) in row-major order,
+    so piece (v, i, c) holds the edges ``[end - count, end)``."""
+    return torch.cumsum(counts.reshape(-1), 0).reshape(counts.shape)
+
+
 @obs.spanned("recon.collinearity")
 def collinear_edges(segments, mask, est_P1, est_P2, est_d1, est_d2,
                     est_valid, k_reg, median_depth, med_scene_depth: float,
                     t_px: float, min_affinity: float):
     """The collinearity edges of all views: host arrays ``(view, s1, s2,
     weight)`` with ``s1 < s2``, in row-major order over (view, s1, s2) (the
-    order of ``np.nonzero`` on the dense grid).  Every argument is a tensor
-    on one device but the floats; as many views at a time as keep the
-    planes within ``_BATCH_BYTES``."""
+    order of ``np.nonzero`` on the dense grid); int64 keys, float32
+    weights.  Every argument is a tensor on one device but the floats.  On
+    CUDA tensors the kernel runs (:func:`collinear_edges_cuda`), on CPU
+    tensors the plain functions (:func:`collinear_edges_plain`)."""
+    fn = (collinear_edges_cuda if mask.device.type == "cuda"
+          else collinear_edges_plain)
+    return fn(segments, mask, est_P1, est_P2, est_d1, est_d2, est_valid,
+              k_reg, median_depth, med_scene_depth, t_px, min_affinity)
+
+
+def _check_arguments(segments, mask, est_P1, est_P2, est_d1, est_d2,
+                     est_valid, k_reg, median_depth) -> None:
+    """Raise unless the arguments are what the kernel takes: contiguous
+    tensors on one CUDA device, float32 but the bool masks, of the shapes
+    that ``mask`` (V, S) gives, with V <= 65535 (the grid's y)."""
+    if mask.dim() != 2:
+        raise ValueError(f"mask: shape {tuple(mask.shape)}, expected (V, S)")
     V, S = mask.shape
+    if V > 65535:
+        raise ValueError(f"{V} views: the kernel takes at most 65535")
+    f32, dev = torch.float32, mask.device
+    for name, x, dtype, shape in (
+            ("segments", segments, f32, (V, S, 4)),
+            ("mask", mask, torch.bool, (V, S)),
+            ("est_P1", est_P1, f32, (V, S, 3)),
+            ("est_P2", est_P2, f32, (V, S, 3)),
+            ("est_d1", est_d1, f32, (V, S)),
+            ("est_d2", est_d2, f32, (V, S)),
+            ("est_valid", est_valid, torch.bool, (V, S)),
+            ("k_reg", k_reg, f32, (V,)),
+            ("median_depth", median_depth, f32, (V,))):
+        kernels.check(name, x, dtype, shape, dev)
+
+
+def collinear_edges_cuda(segments, mask, est_P1, est_P2, est_d1, est_d2,
+                         est_valid, k_reg, median_depth,
+                         med_scene_depth: float, t_px: float,
+                         min_affinity: float):
+    """:func:`collinear_edges` by the kernel ``csrc/collinearity.cu``: a
+    count pass over the upper triangle of every view's pairs, the scan of
+    its (V, S, T) piece counts (:func:`piece_ends`), one read of the total,
+    the write pass and one read of the (E, 4) int32 edges (view, s1, s2,
+    the weight's bits).  Counted once a call as ``collinear_edges``."""
+    _check_arguments(segments, mask, est_P1, est_P2, est_d1, est_d2,
+                     est_valid, k_reg, median_depth)
+    V, S = mask.shape
+    dev = mask.device
+    host = np.zeros((0, 4), np.int32)
+    if V and S:
+        cut = (torch.clamp_max(median_depth, med_scene_depth)
+               if med_scene_depth > EPS else median_depth)
+        T = -(-S // TILE)
+        counts = torch.empty((V, S, T), dtype=torch.int64, device=dev)
+        inputs = [kernels.ptr(x) for x in (
+            segments, mask, est_P1, est_P2, est_d1, est_d2, est_valid,
+            k_reg, cut)]
+        opts = (V, S, T, float(t_px), float(min_affinity))
+        kernels.launch("l3d_collinear_count", *inputs, *opts,
+                       kernels.ptr(counts), kernels.stream(dev))
+        obs.launched("collinear_edges")
+        ends = piece_ends(counts)
+        total = int(ends.reshape(-1)[-1])
+        if total:
+            out = torch.empty((total, 4), dtype=torch.int32, device=dev)
+            kernels.launch("l3d_collinear_write", *inputs, *opts,
+                           kernels.ptr(counts), kernels.ptr(ends),
+                           kernels.ptr(out), kernels.stream(dev))
+            host = out.cpu().numpy()
+    keys = host[:, :3].T.astype(np.int64)
+    return keys[0], keys[1], keys[2], host[:, 3].copy().view(np.float32)
+
+
+def collinear_edges_plain(segments, mask, est_P1, est_P2, est_d1, est_d2,
+                          est_valid, k_reg, median_depth,
+                          med_scene_depth: float, t_px: float,
+                          min_affinity: float):
+    """:func:`collinear_edges` by the plain functions, as many views at a
+    time as keep the planes within ``_BATCH_BYTES``."""
+    V, S = mask.shape
+    if not (V and S):
+        keys = np.zeros(0, np.int64)
+        return keys, keys.copy(), keys.copy(), np.zeros(0, np.float32)
     batch = max(1, _BATCH_BYTES // (_PLANES * 4 * S * S))
     upper = torch.ones((S, S), dtype=torch.bool,
                        device=mask.device).triu_(1)

@@ -19,9 +19,13 @@ are in ``ops/matching.py`` (K1: ``match_pairs``, the insertion form, and
 ``ops/lsd_cc.py`` (K4), ``ops/lsd_gather.py`` (K5, K6: ``gather_labels``
 and ``gather_merged``) and ``ops/lsd_fit.py`` (K7-K11; K9:
 ``gate_pixels`` and ``consume_survivors``; K10: ``band_counts`` and
-``rescue_counts``).  One kernel replaces no Pallas kernel: line bundling's
+``rescue_counts``).  Two kernels replace no Pallas kernel: line bundling's
 Levenberg-Marquardt loop, ``csrc/bundling.cu`` behind
-``ops/bundling.lm_optimize_cuda`` (``lm_bundle``).
+``ops/bundling.lm_optimize_cuda`` (``lm_bundle``), and the collinearity
+edges, ``csrc/collinearity.cu`` behind
+``ops/collinearity.collinear_edges_cuda`` (``collinear_edges``: a count
+and a write launch, counted once a call); the JAX package computes both
+with XLA.
 """
 
 from __future__ import annotations
@@ -49,7 +53,7 @@ LAUNCHES = {"match_pairs": 0, "match_pairs_all": 0, "score_matches": 0,
             "apply_merge_dense": 0, "gather_labels": 0, "gather_merged": 0,
             "moments": 0, "gate_moments": 0, "gate_pixels": 0,
             "consume_survivors": 0, "band_counts": 0, "rescue_counts": 0,
-            "extents": 0, "lm_bundle": 0}
+            "extents": 0, "lm_bundle": 0, "collinear_edges": 0}
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 _U = ctypes.c_uint
@@ -102,6 +106,11 @@ _SIGNATURES = {
     # params0 order offsets, 6 observation arrays, C iterations, params
     # accepted, stream
     "l3d_lm_optimize": [_P] * 9 + [_I] * 2 + [_P] * 2 + [_P],
+    # segments mask P1 P2 d1 d2 valid k_reg cut, V S T, t_px min_affinity,
+    # counts written, stream
+    "l3d_collinear_count": [_P] * 9 + [_I] * 3 + [_F] * 2 + [_P] + [_P],
+    # the same, counts ends edges, stream
+    "l3d_collinear_write": [_P] * 9 + [_I] * 3 + [_F] * 2 + [_P] * 3 + [_P],
 }
 # entry points that return a size, not an error: arguments, result
 _QUERIES = {"l3d_match_all_scratch": ([_I], _L),

@@ -34,6 +34,8 @@ from line3dpp_tpu_torch.ops import affinity, clustering, collinearity, rdd
 from line3dpp_tpu_torch.utils import golden
 
 from tests.test_clustering import _random_edges
+from tests.test_torch_scenes import broken_line_views as _broken_line_views
+from tests.test_torch_scenes import similarity_inputs as _similarity_inputs
 from tests.test_split_bimodal import _make_cluster
 
 
@@ -45,32 +47,6 @@ def _same_partition(a, b):
 
 
 # ---------------------------------------------------------------- collinear
-def _broken_line_views(rng, V=3, S=160):
-    """Segments cut from a few long 2D lines with gaps, jittered by up to
-    2 px, plus clutter: many pairs near the 2-px threshold."""
-    segs = np.zeros((V, S, 4), np.float32)
-    mask = np.zeros((V, S), bool)
-    for v in range(V):
-        rows = []
-        for _ in range(12):
-            p = rng.uniform(0, 1000, 2)
-            d = rng.normal(size=2)
-            d /= np.linalg.norm(d)
-            t = 0.0
-            for _ in range(8):
-                a = t + rng.uniform(2, 30)
-                b = a + rng.uniform(20, 120)
-                j = rng.normal(scale=0.8, size=4)
-                rows.append(np.concatenate([p + a * d, p + b * d]) + j)
-                t = b
-        rows = np.array(rows)[: S - 40]
-        clutter = rng.uniform(0, 1000, (40, 4))
-        allr = np.vstack([rows, clutter])
-        segs[v, : len(allr)] = allr
-        mask[v, : len(allr)] = rng.uniform(size=len(allr)) > 0.05
-    return segs, mask
-
-
 def test_collinear_pairs_hand_built():
     segs = np.array([[[10.0, 50.0, 100.0, 50.0], [150.0, 50.0, 250.0, 50.0],
                       [40.0, 50.0, 160.0, 50.0], [10.0, 80.0, 100.0, 80.0],
@@ -93,32 +69,6 @@ def test_collinear_pairs_bit_equal(t_px):
                                        torch.from_numpy(mask), t_px).numpy()
     assert want.sum() > 20
     np.testing.assert_array_equal(got, want)
-
-
-def _similarity_inputs(rng, V=3, S=120):
-    """Estimates along a few 3D lines (so that many pairs pass) and random
-    clutter, seeded."""
-    P1 = rng.normal(size=(V, S, 3)).astype(np.float32) * 2
-    P1[..., 2] += 8
-    d = rng.normal(size=(V, S, 3))
-    d /= np.linalg.norm(d, axis=-1, keepdims=True)
-    base = rng.normal(size=(V, 4, 3)) * 2 + np.array([0, 0, 8])
-    bd = rng.normal(size=(V, 4, 3))
-    bd /= np.linalg.norm(bd, axis=-1, keepdims=True)
-    for v in range(V):
-        for i in range(S // 2):
-            k = i % 4
-            P1[v, i] = base[v, k] + bd[v, k] * rng.uniform(-2, 2) \
-                + rng.normal(scale=0.01, size=3)
-            d[v, i] = bd[v, k] + rng.normal(scale=0.01, size=3)
-    P2 = (P1 + d * rng.uniform(0.3, 1.5, (V, S, 1))).astype(np.float32)
-    d1 = np.linalg.norm(P1, axis=-1).astype(np.float32)
-    d2 = np.linalg.norm(P2, axis=-1).astype(np.float32)
-    valid = rng.uniform(size=(V, S)) > 0.1
-    collin = rng.uniform(size=(V, S, S)) > 0.3
-    k_reg = rng.uniform(0.002, 0.01, V).astype(np.float32)
-    med = rng.uniform(6, 10, V).astype(np.float32)
-    return P1, P2, d1, d2, valid, collin, k_reg, med
 
 
 @pytest.mark.parametrize("med_scene", [0.0, 7.5])
@@ -161,6 +111,21 @@ def test_collinear_edges_compacts_the_upper_triangle(monkeypatch):
             np.testing.assert_array_equal(g, w)
         np.testing.assert_allclose(got[3], np.asarray(jw)[cv, c1, c2][keep],
                                    rtol=1e-5)
+
+
+@pytest.mark.parametrize("V,S", [(0, 5), (3, 0)])
+def test_collinear_edges_no_views_and_no_segments(V, S):
+    """No views or no segments: no edges, with the dtypes of a result that
+    has some."""
+    z = lambda *shape, dtype=torch.float32: torch.zeros(  # noqa: E731
+        shape, dtype=dtype)
+    got = collinearity.collinear_edges(
+        z(V, S, 4), z(V, S, dtype=torch.bool), z(V, S, 3), z(V, S, 3),
+        z(V, S), z(V, S), z(V, S, dtype=torch.bool), z(V), z(V), 0.0, 2.0,
+        0.5)
+    assert [len(g) for g in got] == [0] * 4
+    assert [g.dtype for g in got] == [np.dtype(np.int64)] * 3 + [
+        np.dtype(np.float32)]
 
 
 # ---------------------------------------------------------------------- RDD

@@ -59,8 +59,27 @@ the CPU.
   order, and the overflow is taken exactly where the count passes the
   records, on empty rows, whole chunks, ragged rows and rows around the
   records, at four alignments.
+- The collinearity kernel (``csrc/collinearity.cu``) visits the upper
+  triangle of every view's pairs in tiles of ``collinearity.TILE``: the
+  grid's x decoded row tile by row tile, one (view, row, column tile)
+  piece per thread and block, each column tile compacted to its eligible
+  segments (masked in, with an estimate) in order.  ``collinear_split``
+  below is a Python model of that split and its two passes (the card
+  tests, ``test_torch_collinearity_cuda.py``, hold the kernel itself to
+  the plain path's edges and order); here every pair i < j of two
+  eligible segments is visited exactly once and no other pair, every
+  piece's count is written once (the diagonal block writes the zeros left
+  of it), and the write pass, at the ends that
+  ``collinearity.piece_ends`` (the wrapper's scan) gives, places the edges
+  in ``np.nonzero`` order, for several S, V, tile sizes and
+  eligibilities.  Its
+  pre-test (``chip_smoke.collinear_pretest_keeps``, in place of the four
+  divisions) keeps every pair the exact test keeps: at t = 1, 2 and 4, at
+  each pair's own cut (the least float above its distances) with t moved
+  by 2^-22 either way, and on degenerate, huge, NaN and subnormal inputs.
 """
 
+import functools
 import importlib.util
 import os
 
@@ -68,12 +87,14 @@ import numpy as np
 import pytest
 import torch
 
-from line3dpp_tpu_torch.ops import lsd, lsd_cc, lsd_fit, matching, scoring
+from line3dpp_tpu_torch.ops import collinearity, lsd, lsd_cc, lsd_fit, \
+    matching, scoring
 
 from test_torch_lsd_cases import lines_image, random_sorted_case, \
     random_tables
-from test_torch_scenes import agreeing_scoring_case, bundled_step_inputs, \
-    k2_arguments, k2_scene_arguments, pair_list, synthetic_step_inputs
+from test_torch_scenes import agreeing_scoring_case, broken_line_views, \
+    bundled_step_inputs, k2_arguments, k2_scene_arguments, pair_list, \
+    synthetic_step_inputs
 
 EPS = matching.EPS
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -406,6 +427,7 @@ def test_k2_pretest_counts_agree_with_the_pairs():
     assert n["segments_no_valid"] < n["segments"]
 
 
+@functools.lru_cache(maxsize=None)
 def _chip_smoke():
     spec = importlib.util.spec_from_file_location(
         "chip_smoke", os.path.join(REPO, "chip_smoke.py"))
@@ -1257,3 +1279,177 @@ def test_k2_setup_split_rows_across_the_records():
         assert split["over"] == (n > cap) and split["listed"] == n
         if n <= cap:
             assert split["records"] == np.flatnonzero(row).tolist()
+
+
+# ---------------------------------------------------------------------------
+# the collinearity kernel: its tiles, its output order, its pre-test
+# ---------------------------------------------------------------------------
+
+def collinear_split(edge: np.ndarray, eligible: np.ndarray,
+                    tile: int) -> dict:
+    """A model of ``csrc/collinearity.cu``'s schedule, which these tests
+    check, not the kernel: its two passes over (V, S, S) ``edge`` (the
+    pairs that are edges, all of two ``eligible`` (V, S) segments), block
+    by block and row by row: the grid's x decoded to (row tile, column
+    tile) as the kernel decodes it, the column tile compacted to its
+    eligible segments in order, each eligible row's pairs (against those
+    columns, j > i), the count pass's piece counts (the diagonal block
+    also writes its rows' zeros left of it), then the write pass at the
+    ends of ``collinearity.piece_ends``.  Returns how often each pair was
+    visited and each piece's count written, and the (E, 3) edges as
+    written."""
+    V, S, _ = edge.shape
+    T = -(-S // tile)
+    blocks = []
+    for bx in range(T * (T + 1) // 2):
+        b, rt = bx, 0
+        while b >= T - rt:
+            b -= T - rt
+            rt += 1
+        blocks.append((rt, rt + b))
+    visits = np.zeros((V, S, S), np.int64)
+    written = np.zeros((V, S, T), np.int64)
+    counts = np.full((V, S, T), -1, np.int64)
+    pieces = []                       # (v, i, ct, the columns visited)
+    for v in range(V):
+        for rt, ct in blocks:
+            cols = np.arange(ct * tile, min((ct + 1) * tile, S))
+            cols = cols[eligible[v, cols]]           # compacted, in order
+            for i in range(rt * tile, min((rt + 1) * tile, S)):
+                if ct == rt:
+                    counts[v, i, :rt] = 0
+                    written[v, i, :rt] += 1
+                js = cols[cols > i] if eligible[v, i] else cols[:0]
+                visits[v, i, js] += 1
+                counts[v, i, ct] = int(edge[v, i, js].sum())
+                written[v, i, ct] += 1
+                pieces.append((v, i, ct, js))
+    ends = collinearity.piece_ends(torch.from_numpy(counts)).numpy()
+    out = np.full((int(ends.reshape(-1)[-1]) if ends.size else 0, 3), -1)
+    for v, i, ct, js in pieces:              # the write pass, any order
+        base = ends[v, i, ct] - counts[v, i, ct]
+        for m, j in enumerate(js[edge[v, i, js]]):
+            out[base + m] = (v, i, j)
+    return dict(visits=visits, written=written, counts=counts, out=out)
+
+
+def _edge_case(name, V, S, rng):
+    """Eligible segments and edges among them."""
+    eligible = {"all": np.ones((V, S), bool),
+                "none": np.zeros((V, S), bool)}.get(
+        name, rng.uniform(size=(V, S)) < 0.6)
+    if name == "last":                       # one edge: the last pair
+        eligible = np.ones((V, S), bool)
+        e = np.zeros((V, S, S), bool)
+        if S > 1:
+            e[-1, S - 2, S - 1] = True
+    elif name == "random":
+        e = rng.uniform(size=(V, S, S)) < 0.05
+    else:
+        e = np.ones((V, S, S), bool)
+    return e & eligible[:, :, None] & eligible[:, None, :], eligible
+
+
+@pytest.mark.parametrize("tile,V,S", [
+    (collinearity.TILE, 2, 1), (collinearity.TILE, 1, 2),
+    (collinearity.TILE, 2, collinearity.TILE - 1),
+    (collinearity.TILE, 1, collinearity.TILE),
+    (collinearity.TILE, 2, collinearity.TILE + 1),
+    (collinearity.TILE, 1, 300), (4, 3, 1), (4, 2, 4), (4, 3, 13),
+    (8, 2, 40), (4, 1, 33)])
+@pytest.mark.parametrize("name", ["random", "all", "none", "last"])
+def test_collinear_split_visits_the_upper_triangle_once(tile, V, S, name):
+    edge, eligible = _edge_case(name, V, S,
+                                np.random.default_rng(V * 1000 + S))
+    split = collinear_split(edge, eligible, tile)
+    upper = np.triu(np.ones((S, S), np.int64), 1)
+    both = eligible[:, :, None] & eligible[:, None, :]
+    assert (split["visits"] == upper * both).all()   # once, and no other
+    assert (split["written"] == 1).all() and (split["counts"] >= 0).all()
+    want = np.argwhere(edge & upper.astype(bool))    # np.nonzero's order
+    np.testing.assert_array_equal(split["out"].reshape(-1, 3), want)
+
+
+def test_piece_ends_is_the_row_major_inclusive_scan():
+    counts = torch.from_numpy(np.random.default_rng(1).integers(
+        0, 5, (3, 7, 2))).to(torch.int64)
+    ends = collinearity.piece_ends(counts)
+    assert ends.dtype == torch.int64 and ends.shape == counts.shape
+    np.testing.assert_array_equal(
+        ends.numpy().reshape(-1), np.cumsum(counts.numpy().reshape(-1)))
+
+
+def _column_distances(segs: torch.Tensor):
+    """The plain path's d21 and d22 of every pair (row i, column j): the
+    column's endpoints to the row's line."""
+    x1, y1, x2, y2 = segs.unbind(-1)
+    a = lambda t: t[:, :, None]              # noqa: E731
+    b = lambda t: t[:, None, :]              # noqa: E731
+    d21 = collinearity._point_line_dist2d(b(x1), b(y1), a(x1), a(y1),
+                                          a(x2), a(y2))
+    d22 = collinearity._point_line_dist2d(b(x2), b(y2), a(x1), a(y1),
+                                          a(x2), a(y2))
+    return d21, d22
+
+
+@pytest.mark.parametrize("t_px", [1.0, 2.0, 4.0])
+def test_collinear_pretest_keeps_every_collinear_pair(t_px):
+    segs, mask = (torch.from_numpy(x) for x in
+                  broken_line_views(np.random.default_rng(3)))
+    exact = collinearity.collinear_pairs(segs, mask, t_px)
+    keeps = _chip_smoke().collinear_pretest_keeps(segs, mask, t_px)
+    assert int(exact.sum()) > 50
+    assert not bool((exact & ~keeps).any())
+
+
+def test_collinear_pretest_keeps_pairs_at_their_own_cut():
+    """Each pair's t is the least float above its larger column distance,
+    so the exact test keeps it by those two distances; moved down by
+    2^-22, eight times the rounding of one product, the pre-test keeps it
+    still (its margin is 2^-20), and moved up too."""
+    segs, mask = (torch.from_numpy(x) for x in
+                  broken_line_views(np.random.default_rng(4)))
+    d21, d22 = _column_distances(segs)
+    dmax = torch.maximum(d21, d22)
+    finite = torch.isfinite(dmax) & mask[:, :, None] & mask[:, None, :]
+    t = torch.nextafter(dmax, torch.full_like(dmax, float("inf")))
+    assert bool(((d21 < t) & (d22 < t))[finite].all())
+    for sign in (-1.0, 1.0):
+        moved = (t.double() * (1.0 + sign * 2.0**-22)).float()
+        keeps = _chip_smoke().collinear_pretest_keeps(segs, mask, moved)
+        assert bool(keeps[finite].all())
+
+
+def test_collinear_pretest_on_degenerate_inputs():
+    """Zero-length and huge segments, a NaN endpoint, thresholds whose
+    product with the length is subnormal or zero: wherever the exact test
+    keeps a pair, the pre-test keeps it (a NaN threshold keeps all)."""
+    f = np.float32
+    segs = np.array([[[10, 10, 10, 10], [10, 10, 10, 10], [0, 0, 1e-20, 0],
+                      [5e-21, 0, 2e-20, 0], [1e30, 1e30, 3e30, 1e30],
+                      [4e30, 1e30, 6e30, 1e30], [0, 0, 100, 0],
+                      [101, 1e-30, 200, 0], [np.nan, 0, 5, 5],
+                      [-3e38, 0, 3e38, 0], [0, 0, 1e-30, 1e-30]]], f)
+    mask = np.ones(segs.shape[:2], bool)
+    s, m = torch.from_numpy(segs), torch.from_numpy(mask)
+    for t_px in (2.0, 1e-30, 1e-45, 0.0, 3e38):
+        exact = collinearity.collinear_pairs(s, m, t_px)
+        keeps = _chip_smoke().collinear_pretest_keeps(s, m, t_px)
+        assert not bool((exact & ~keeps).any()), t_px
+    thr = _chip_smoke().collinear_pretest_threshold(
+        torch.tensor([1.0, 0.0, 1e-40]), 1.0)
+    assert thr[0] > 1.0 and torch.isinf(thr[1:]).all()
+
+
+def test_collinear_pretest_rejects_nearly_all_pairs():
+    """The pre-test is cheap only if it decides: on the seeded views it
+    keeps under 5% of the masked-in pairs, at most 4 times the pairs whose
+    two column distances pass."""
+    segs, mask = (torch.from_numpy(x) for x in
+                  broken_line_views(np.random.default_rng(3)))
+    keeps = _chip_smoke().collinear_pretest_keeps(segs, mask, 2.0)
+    d21, d22 = _column_distances(segs)
+    both = (d21 < 2.0) & (d22 < 2.0) & mask[:, :, None] & mask[:, None, :]
+    pairs = int((mask[:, :, None] & mask[:, None, :]).sum())
+    assert int(keeps.sum()) < 0.05 * pairs
+    assert int(both.sum()) <= int(keeps.sum()) <= 4 * int(both.sum())

@@ -150,6 +150,63 @@ def pair_list(inp: dict):
             inp["F"].reshape(-1, 3, 3), inp["pair_valid"].reshape(-1))
 
 
+# ---------------------------------------------------------------- collinear
+def broken_line_views(rng, V: int = 3, S: int = 160, fill: bool = False):
+    """Segments cut from a few long 2D lines with gaps, jittered by up to
+    2 px, plus clutter: many pairs near the 2-px threshold (S >= 136:
+    96 pieces of lines and 40 clutter segments a view, then padding).
+    ``fill`` draws as many lines as it takes to fill all S rows."""
+    segs = np.zeros((V, S, 4), np.float32)
+    mask = np.zeros((V, S), bool)
+    n_lines = max(12, -(-(S - 40) // 8)) if fill else 12
+    for v in range(V):
+        rows = []
+        for _ in range(n_lines):
+            p = rng.uniform(0, 1000, 2)
+            d = rng.normal(size=2)
+            d /= np.linalg.norm(d)
+            t = 0.0
+            for _ in range(8):
+                a = t + rng.uniform(2, 30)
+                b = a + rng.uniform(20, 120)
+                j = rng.normal(scale=0.8, size=4)
+                rows.append(np.concatenate([p + a * d, p + b * d]) + j)
+                t = b
+        rows = np.array(rows)[: S - 40]
+        clutter = rng.uniform(0, 1000, (40, 4))
+        allr = np.vstack([rows, clutter])
+        segs[v, : len(allr)] = allr
+        mask[v, : len(allr)] = rng.uniform(size=len(allr)) > 0.05
+    return segs, mask
+
+
+def similarity_inputs(rng, V: int = 3, S: int = 120):
+    """Estimates along a few 3D lines (so that many pairs pass) and random
+    clutter, seeded: P1, P2, d1, d2, valid, a random (V, S, S) pair mask,
+    k_reg and the median depths."""
+    P1 = rng.normal(size=(V, S, 3)).astype(np.float32) * 2
+    P1[..., 2] += 8
+    d = rng.normal(size=(V, S, 3))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    base = rng.normal(size=(V, 4, 3)) * 2 + np.array([0, 0, 8])
+    bd = rng.normal(size=(V, 4, 3))
+    bd /= np.linalg.norm(bd, axis=-1, keepdims=True)
+    for v in range(V):
+        for i in range(S // 2):
+            k = i % 4
+            P1[v, i] = base[v, k] + bd[v, k] * rng.uniform(-2, 2) \
+                + rng.normal(scale=0.01, size=3)
+            d[v, i] = bd[v, k] + rng.normal(scale=0.01, size=3)
+    P2 = (P1 + d * rng.uniform(0.3, 1.5, (V, S, 1))).astype(np.float32)
+    d1 = np.linalg.norm(P1, axis=-1).astype(np.float32)
+    d2 = np.linalg.norm(P2, axis=-1).astype(np.float32)
+    valid = rng.uniform(size=(V, S)) > 0.1
+    collin = rng.uniform(size=(V, S, S)) > 0.3
+    k_reg = rng.uniform(0.002, 0.01, V).astype(np.float32)
+    med = rng.uniform(6, 10, V).astype(np.float32)
+    return P1, P2, d1, d2, valid, collin, k_reg, med
+
+
 def test_bundled_loader_matches_jax_cache():
     """The port's loader returns, for all 26 bundled views, the cameras of
     cameras_testdata.json and the segments JAX's cache reader returns."""
