@@ -42,24 +42,22 @@
    and ``torch_features_jax_reference.npz`` (written by
    ``tests/make_torch_colmap_reference.py`` and
    ``make_torch_features_reference.py`` with the JAX package on the CPU).
-   Then K1's and K2's general forms (``general_kernel_checks``): K1 at
-   k = 20 on the 416 pairs (a kernels-line row of its own) and at k = S =
-   3000 on views 0-2's 48 pairs (one all-matches block, the rows past its
-   list printed) against the plain matcher bit for bit, the
-   insertion form at k = 10 against the first 10 slots at k = S; K2's
-   general form against the plain scorer at knn = ``K2_WIDE_KNN`` (M =
-   1600, views 0-2) and against the first form on the M = 160 tables, bit
-   for bit, and timed on the all-matches block (M = 48,000) with its
-   records, the segments past them and the pre-test survivors counted for
-   its bound (``sparse_pretest_counts``).  Then items 14 and 15 through the entry
-   points (``item14_15_phase``): the 26 views at ``view_block`` 4 and 13
-   (the fused TXT byte for byte, K1 and K2 once a block, no K3), the
-   104-view scene of ``tools/bench_scale.py`` (the port's
-   ``tools.bench_scale.build_scene``) fused and at ``view_block=26`` (the
-   same TXT), all matches (``knn=0``: auto-blocked at 3 with the JAX package's
-   printed line, K1's and K2's general forms once a block), ``knn=20``
-   fused, and the view-sharded step over NCCL at world size 1 against
-   ``forward_step`` bit for bit (``sharded_world1``).  Then the
+   Then K1 and K2 past the cells' k and M (``wide_kernel_checks``):
+   K1 at k = 20 on the 416 pairs (a kernels-line row of its own) and at
+   k = S = 3000 on views 0-2's 48 pairs (one all-matches block, the rows
+   past its list printed) against the plain matcher bit for bit; K2
+   against the plain scorer at knn = ``K2_WIDE_KNN`` (M = 1600, views
+   0-2), bit for bit, and timed on the all-matches block (M = 48,000)
+   with its records, the segments past them and the pre-test survivors
+   counted for its bound (``sparse_pretest_counts``).  Then items 14 and
+   15 through the entry points (``item14_15_phase``): the 26 views at
+   ``view_block`` 4 and 13 (the fused TXT byte for byte, K1 and K2 once a
+   block, no K3), the 104-view scene of ``tools/bench_scale.py`` (the
+   port's ``tools.bench_scale.build_scene``) fused and at
+   ``view_block=26`` (the same TXT), all matches (``knn=0``: auto-blocked
+   at 3 with the JAX package's printed line, K1 and K2 once a block),
+   ``knn=20`` fused, and the view-sharded step over NCCL at world size 1
+   against ``forward_step`` bit for bit (``sharded_world1``).  Then the
    weak-scaling tool's path (``scaling_phase``): the sharded step at world
    size 1 on ``bench.make_workload(4, 1024, 6)`` under ``comm="tile"``
    and ``"gather"``, bit for bit equal with K1-K3 once a call under each,
@@ -145,8 +143,9 @@
    torch tail they replace), one ``{"full_size": ...}`` line (the detection
    kernels on the synthetic grids), one ``{"kernels": [...]}`` line
    (``launches``: the rescue path's run; ``launches_default``: the
-   ``Config(optimize=False)`` run, which launches no K10; K1's and
-   K2's general forms: the all-matches run's; the collinearity kernel:
+   ``Config(optimize=False)`` run, which launches no K10; K1 at k = 20:
+   the ``knn=20`` run's, K1 and K2 on the all-matches block: the
+   all-matches run's; the collinearity kernel:
    item 13's reference run, the only path that reaches it; neither
    launches K9's gate_pixels form or K10's 4-band form;
    ``launches_rect_improve``: the rect_improve detection), the nvidia-smi
@@ -229,7 +228,7 @@ LM_OPS_PER_JACOBIAN = 590
 LM_OPS_PER_COST = 140
 LM_OPS_PER_FRAME = 100
 LM_OPS_PER_STEP = 90
-# K2's general form against its plain version at this knn (M = 16 x 100)
+# K2 against its plain version at this knn (M = 16 x 100, past the cells' 160)
 K2_WIDE_KNN = 100
 # the weak-scaling tool's defaults: make_workload(views, segments,
 # neighbours) at one rank (4 views a shard), and its process's time limit
@@ -315,9 +314,6 @@ CL_OPS_SIMILARITY = 110
 # is a normal float (CL_PRETEST_TINY); else it keeps the pair
 CL_PRETEST_MARGIN = 1.0 + 2.0**-20
 CL_PRETEST_TINY = 2.0**-126
-# the general forms of K1 (k > 16) and K2 (M > 1024): the images paths run
-# k = 10, M <= 1024; all matches (knn <= 0) and knn = 20 run them
-GENERAL_FORMS = ("match_pairs_all", "score_matches_all")
 # the long-edge grid: bands of this many rows of one angle, 47% active
 STRIPE_ROWS = 8
 STRIPE_ACTIVE = 0.47
@@ -542,7 +538,7 @@ def check_k1(t, eo, knn):
     ops = K1_OPS_PER_CANDIDATE * candidates
     moved = nbytes(t.segments, t.mask, t.r1, t.r2, t.n, t.seglen, t.e1,
                    t.e2, t.num_src, t.num_tgt, t.src_idx, t.tgt_idx,
-                   t.pair_valid) + nbytes(*got[:6])
+                   t.pair_valid) + nbytes(*got)
     k1 = lambda: matching.match_pairs_cuda(t, eo, knn)
     ms = cuda_ms(k1, reps=5)
     plain_ms = cuda_ms(lambda: matching.match_pairs_plain(t, eo, knn, 8),
@@ -1030,17 +1026,19 @@ def ptxas_report(build_log: str) -> list[str]:
     return rows
 
 
-def k1_reject_path(sass: str, knn: int) -> dict | None:
-    """Instructions per candidate of K1's reject path in ``match_kernel<knn>``
-    from ``cuobjdump -sass``.  The step loop is the innermost loop that
-    holds four or more LDS.128 (the targets' float4s); its pre-tests have
-    no branch, so its first forward branch skips the exact path when no
-    target survives.  A step with no survivor runs from the loop head to
-    that branch and from the branch's target to the back-edge; the step
+def k1_reject_path(sass: str) -> dict | None:
+    """Instructions per candidate of K1's reject path in its scan,
+    ``match_list_kernel``, from ``cuobjdump -sass``.  The step loop is the
+    innermost loop that holds four or more LDS.128 (the targets' float4s)
+    before its first forward branch (the write phase's rank loop reads
+    its keys by LDS.128 too, but has no such branch): the pre-tests have
+    no branch, so that branch skips the exact path when no target
+    survives.  A step with no survivor runs from the loop head to that
+    branch and from the branch's target to the back-edge; the step
     pre-tests as many targets as it has LDS.128 before the branch."""
     import re
 
-    body = sass_function(sass, f"match_kernelILi{knn}E")
+    body = sass_function(sass, "match_list_kernel")
     if body is None:
         return None
     ins = [(int(m.group(1), 16), m.group(2).strip()) for m in re.finditer(
@@ -1054,19 +1052,18 @@ def k1_reject_path(sass: str, knn: int) -> dict | None:
         return sum(1 for a, t in ins if lo <= a <= hi and "LDS.128" in t)
 
     branches = [(a, target(t)) for a, t in ins if target(t) is not None]
-    loops = [(a - b, a, b) for a, b in branches if b < a and loads(b, a) >= 4]
-    if not loops:
-        return None
-    _, back, head = min(loops)
-    fwd = [(a, b) for a, b in branches if head <= a < back and a < b <= back]
-    if not fwd:
-        return None
-    skip, inc = min(fwd)
-    group = loads(head, skip)
-    if group < 4:
-        return None
-    step = (skip - head) // 16 + 1 + (back - inc) // 16 + 1
-    return dict(group=group, per_candidate=step / group, step=step)
+    for _, back, head in sorted((a - b, a, b) for a, b in branches
+                                if b < a and loads(b, a) >= 4):
+        fwd = [(a, b) for a, b in branches
+               if head <= a < back and a < b <= back]
+        if not fwd:
+            continue
+        skip, inc = min(fwd)
+        group = loads(head, skip)
+        if group >= 4:
+            step = (skip - head) // 16 + 1 + (back - inc) // 16 + 1
+            return dict(group=group, per_candidate=step / group, step=step)
+    return None
 
 
 def cuobjdump_sass(lib: str) -> str | None:
@@ -1086,15 +1083,15 @@ def cuobjdump_sass(lib: str) -> str | None:
     return out.stdout
 
 
-def k1_sass_info(sass: str | None, knn: int) -> dict | None:
+def k1_sass_info(sass: str | None) -> dict | None:
     """K1's reject path in SASS instructions per candidate (printed)."""
-    info = k1_reject_path(sass, knn) if sass else None
+    info = k1_reject_path(sass) if sass else None
     if sass and info is None:
-        print(f"K1 SASS: match_kernel<{knn}>'s pre-test step was not found "
-              f"in cuobjdump's output", flush=True)
+        print("K1 SASS: match_list_kernel's pre-test step was not found "
+              "in cuobjdump's output", flush=True)
     if info is None:
         return None
-    print(f"K1 SASS, match_kernel<{knn}>: a step of {info['group']} "
+    print(f"K1 SASS, match_list_kernel: a step of {info['group']} "
           f"targets with no survivor "
           f"{info['step']}, so {info['per_candidate']:.2f} per candidate on "
           f"the reject path (K1_OPS_PER_CANDIDATE = {K1_OPS_PER_CANDIDATE} "
@@ -1110,14 +1107,14 @@ def sass_function(sass: str, name: str) -> str | None:
 
 
 def k2_reject_path(sass: str) -> dict | None:
-    """Instructions per pair of K2's reject path in ``score_kernel``, from
-    ``cuobjdump -sass``: its pre-test of 32 partners is unrolled and
+    """Instructions per pair of K2's reject path in ``score_all_kernel``,
+    from ``cuobjdump -sass``: its pre-test of 32 partners is unrolled and
     branch-free, so it is the basic block without a MUFU (the exact path's
     acosf and expf) that reads the most partners' float4s (LDS.128); per
     pair, that block's instructions over its LDS.128."""
     import re
 
-    body = sass_function(sass, "score_kernel")
+    body = sass_function(sass, "score_all_kernel")
     if body is None:
         return None
     ins = [(int(m.group(1), 16), m.group(2).strip()) for m in re.finditer(
@@ -1151,11 +1148,11 @@ def k2_sass_info(sass: str | None) -> dict | None:
     """K2's reject path in SASS instructions per pair (printed)."""
     info = k2_reject_path(sass) if sass else None
     if sass and info is None:
-        print("K2 SASS: score_kernel's pre-test block was not found in "
+        print("K2 SASS: score_all_kernel's pre-test block was not found in "
               "cuobjdump's output", flush=True)
     if info is None:
         return None
-    print(f"K2 SASS, score_kernel: the pre-test of "
+    print(f"K2 SASS, score_all_kernel: the pre-test of "
           f"{info['partners']} partners is {info['step']} instructions, so "
           f"{info['per_pair']:.2f} per pair on the reject path "
           f"(K2_PRETEST_OPS_PER_PAIR = {K2_PRETEST_OPS_PER_PAIR} stays the "
@@ -1762,7 +1759,7 @@ def images_to_lines(images, cams, gt, ref, dev, rescue: bool = False):
         # K5 and K6's gather_labels form are not on the detection path
         # (held against their plain versions above); K10 and K9's
         # gate_pixels form run in the rescue cascade only
-        check(n > 0 or name in OFF_PATH or name in GENERAL_FORMS
+        check(n > 0 or name in OFF_PATH
               or (name in RESCUE_ONLY and not rescue)
               or (name in BUNDLE_ONLY and not cfg.optimize)
               or (name in COLLINEAR_ONLY and not cfg.collinearity_t > 0),
@@ -1889,7 +1886,7 @@ def cli_phase(images, cams, gt, ref, seg_views, geo_lines, dev) -> dict:
     check(first.pipe.config == cfg, "the CLI built another Config")
     check(first.pipe.device.type == "cuda", "the CLI did not run on the card")
     check(all(n > 0 for k, n in launches[0].items()
-              if k not in OFF_PATH + RESCUE_ONLY + GENERAL_FORMS
+              if k not in OFF_PATH + RESCUE_ONLY
               and (cfg.optimize or k not in BUNDLE_ONLY)
               and (cfg.collinearity_t > 0 or k not in COLLINEAR_ONLY)),
           "the CLI's first run did not launch every kernel of its path")
@@ -2568,19 +2565,15 @@ def sparse_pretest_counts(args, kw, chunk: int = 32) -> dict:
     return n
 
 
-def general_kernel_checks(inp, cfg, dev) -> tuple[list, dict]:
-    """K1's and K2's general forms on the 26 views: K1 at k = 20 (416
-    pairs, a kernels-line row of its own, and the two forms at the main
-    path's k = 10 bit for bit and timed in turns: ``forms_at_k10``) and at
-    k = S (the 48 pairs of views 0-2, one all-matches block) against the
-    plain matcher, and its
-    k = S prefix against the insertion form at k = 10, with the rows past
-    its list (``matching.LIST_LEN``: the overflow path) counted; K2's
-    general form against the plain scorer at knn = 100 (M = 1600, views
-    0-2) and against the first form on the main path's M = 160 tables
-    (both timed there in turns: ``forms_at_m160``); K2's time on the
-    all-matches block (M = 48,000) with the counts behind its bound and
-    the segments past its records (``scoring.RECORDS``)."""
+def wide_kernel_checks(inp, cfg, dev) -> tuple[list, dict]:
+    """K1 and K2 past the cells' k and M on the 26 views: K1 at k = 20
+    (416 pairs, a kernels-line row of its own) and at k = S (the 48 pairs
+    of views 0-2, one all-matches block) against the plain matcher, with
+    the rows past its list (``matching.LIST_LEN``: the overflow path)
+    counted; K2 against the plain scorer at knn = 100 (M = 1600, views
+    0-2); K2's time on the all-matches block (M = 48,000) with the counts
+    behind its bound and the segments past its records
+    (``scoring.RECORDS``)."""
     import torch
     from line3dpp_tpu_torch.ops import matching, scoring
 
@@ -2597,23 +2590,21 @@ def general_kernel_checks(inp, cfg, dev) -> tuple[list, dict]:
                              d["pair_valid"].reshape(-1))
     info = {}
     # K1 at k = 20 over every pair (F3): its own row, bound by the
-    # candidates' operations, its bytes beside (the general form writes
-    # the validity too: 25 B a slot)
+    # candidates' operations, its bytes beside (25 B a slot)
     k20 = matching.match_pairs_cuda(t, eo, 20)
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     start.record()
     want = matching.match_pairs_plain(t, eo, 20, chunk=8)
     end.record()
     torch.cuda.synchronize()
-    same_matches(k20, want, f"K1 general form, k = 20, {V * N} pairs, "
-                 "against plain")
+    same_matches(k20, want, f"K1, k = 20, {V * N} pairs, against plain")
     moved = nbytes(t.segments, t.mask, t.r1, t.r2, t.n, t.seglen, t.e1,
                    t.e2, t.num_src, t.num_tgt, t.src_idx, t.tgt_idx,
                    t.pair_valid) + nbytes(*k20)
     ops = K1_OPS_PER_CANDIDATE * k1_candidates(t)
     b_ms, by = bound(ops, moved)
     k1 = lambda: matching.match_pairs_cuda(t, eo, 20)
-    row20 = dict(name="K1 match_pairs_all (k = 20)", route="cuda",
+    row20 = dict(name="K1 match_pairs (k = 20)", route="cuda",
                  source="line3dpp_tpu_torch/csrc/matching.cu",
                  replaces="line3dpp_tpu/ops/matching_pallas.py:233",
                  max_abs_err=0.0, ms=cuda_ms(k1, reps=3),
@@ -2622,46 +2613,20 @@ def general_kernel_checks(inp, cfg, dev) -> tuple[list, dict]:
                  bound_bytes_ms=1e3 * moved / PEAK_BYTES, library_ms=None,
                  shape=f"k = 20, {V * N} pairs", launch_path="knn20")
     del k20, want
-    # K1's two forms at the main path's k over every pair, in turns: the
-    # general form's list (k <= LIST_LEN: an exact top-k) against the
-    # insertion form's registers
-    knn = inp["knn"]
-    ins = matching.match_pairs_cuda(t, eo, knn)
-    gen = matching.match_pairs_cuda(t, eo, knn, general=True)
-    same_matches(gen, ins, f"K1 forms at k = {knn}, {V * N} pairs: the "
-                 "general form against the insertion form")
-    del ins, gen
-    forms = dict(insertion=lambda: matching.match_pairs_cuda(t, eo, knn),
-                 general=lambda: matching.match_pairs_cuda(
-                     t, eo, knn, general=True))
-    turns = {name: [] for name in forms}
-    for name in ("insertion", "general", "general", "insertion"):
-        turns[name].append((cuda_ms(forms[name], reps=3),
-                            device_ms(forms[name], 3)))
-    k10 = {f"{name}_{unit}": float(np.mean([t_[i] for t_ in turns[name]]))
-           for name in forms for i, unit in enumerate(("ms", "device_ms"))}
-    print(f"K1 forms at k = {knn}, {V * N} pairs, in turns (insertion, "
-          "general, general, insertion): " + json.dumps(k10), flush=True)
-    row20["forms_at_k10"] = k10
     # K1 at k = S over one block's pairs
     tb = pair_subset(t, 0, 3 * N)
     every = matching.match_pairs_cuda(tb, eo, S)
     torch.cuda.synchronize()
     want = matching.match_pairs_plain(tb, eo, S, chunk=2)
-    same_matches(every, want, f"K1 general form, k = S = {S}, views 0-2 "
+    same_matches(every, want, f"K1, k = S = {S}, views 0-2 "
                  f"({3 * N} pairs), against plain")
     del want
-    top = matching.match_pairs_cuda(tb, eo, 10)
-    same_matches(top, type(every)(*(x[..., :10] for x in every)),
-                 "K1 prefix: the insertion form at k = 10 against the first "
-                 "10 slots of the general form at k = S")
-    del top
     counts = every.valid.sum(-1)
     info["k1_kS_valid_per_row"] = dict(
         mean=float(counts.float().mean()), max=int(counts.max()),
         over_list=int((counts > matching.LIST_LEN).sum()),
         list_len=matching.LIST_LEN, rows=int(counts.numel()))
-    print("K1 general form, k = S: rows past the list (the overflow path): "
+    print("K1, k = S: rows past the list (the overflow path): "
           + json.dumps(info["k1_kS_valid_per_row"]), flush=True)
     k1 = lambda: matching.match_pairs_cuda(tb, eo, S)
     torch.cuda.synchronize()
@@ -2672,15 +2637,16 @@ def general_kernel_checks(inp, cfg, dev) -> tuple[list, dict]:
     plain_ms = cuda_ms(lambda: matching.match_pairs_plain(tb, eo, S, 2),
                        reps=1, warmup=0)
     b_ms, by = bound(ops, moved)
-    row1 = dict(name="K1 match_pairs_all", route="cuda",
+    row1 = dict(name="K1 match_pairs (k = S)", route="cuda",
                 source="line3dpp_tpu_torch/csrc/matching.cu",
                 replaces="line3dpp_tpu/ops/matching_pallas.py:233",
                 max_abs_err=0.0, ms=cuda_ms(k1, reps=3),
                 device_ms=device_ms(k1, 3), plain_ms=plain_ms,
                 bound_ms=b_ms, bound_by=by, library_ms=None,
-                shape=f"k = S = {S}, {3 * N} pairs", **info)
+                shape=f"k = S = {S}, {3 * N} pairs", launch_path="all_matches",
+                **info)
 
-    # K2's general form: the all-matches block, from K1's k = S table
+    # K2 on the all-matches block, from K1's k = S table
     args = block_k2_args(inp, d, every, 0, 3)
     del every
     kw = dict(knn=S, two_sig_a_sqr=cfg.two_sig_a_sqr,
@@ -2690,14 +2656,14 @@ def general_kernel_checks(inp, cfg, dev) -> tuple[list, dict]:
     every_pair = scoring.score_matches_cuda(*args, pretest=False, **kw)
     check(torch.equal(got.score3d, every_pair.score3d)
           and torch.equal(got.valid, every_pair.valid),
-          "K2's general form: its pre-test changes a bit")
+          "K2 on the all-matches block: its pre-test changes a bit")
     del every_pair
     n = sparse_pretest_counts(args, kw)
     seg_counts = args[9].sum(-1)
     n["segments_over_records"] = int((seg_counts > scoring.RECORDS).sum())
     n["records"] = scoring.RECORDS
     n["max_valid_slots"] = int(seg_counts.max())
-    print("K2 general form, all-matches block (views 0-2, M = "
+    print("K2, all-matches block (views 0-2, M = "
           f"{args[7].shape[2]}; segments past the records take the overflow "
           "path): " + json.dumps(n), flush=True)
     k2 = lambda: scoring.score_matches_cuda(*args, **kw)
@@ -2720,39 +2686,16 @@ def general_kernel_checks(inp, cfg, dev) -> tuple[list, dict]:
     err = float((got.score3d[:3] - want.score3d).abs().max())
     same = (torch.equal(got.score3d[:3], want.score3d)
             and torch.equal(got.valid[:3], want.valid))
-    print(f"K2 general form, knn = {K2_WIDE_KNN} (M = {N * K2_WIDE_KNN}), "
+    print(f"K2, knn = {K2_WIDE_KNN} (M = {N * K2_WIDE_KNN}), "
           f"views 0-2 against plain: "
           f"{int(want.valid.sum())} valid slots, bit-equal {same}, max |err| "
           f"{err:.3g}", flush=True)
-    check(same, "K2's general form differs from its plain version")
+    check(same, "K2 differs from its plain version at knn = "
+          f"{K2_WIDE_KNN}")
     plain_ms = cuda_ms(lambda: scoring.score_matches_plain(*sub, **kw100),
                        reps=1, warmup=0)
     del got, want, sub, args
-    # against the first form on the main path's M = 160 tables
-    pm = matching.match_pairs_cuda(t, eo, inp["knn"])
-    args = block_k2_args(inp, d, pm, 0, V)
-    kw10 = dict(kw, knn=inp["knn"])
-    a = scoring.score_matches_cuda(*args, **kw10)
-    b = scoring.score_matches_cuda(*args, general=True, **kw10)
-    same = torch.equal(a.score3d, b.score3d) and torch.equal(a.valid, b.valid)
-    print(f"K2 general form against the first form, M = {N * inp['knn']}: "
-          f"bit-equal {same}", flush=True)
-    check(same, "K2's two forms differ on the main path's tables")
-    # both forms on those tables, in turns: CUDA events around the wrapper
-    # (the general form's read of its record count included) and the
-    # card's kernels, copies and memsets summed
-    forms = dict(first=lambda: scoring.score_matches_cuda(*args, **kw10),
-                 general=lambda: scoring.score_matches_cuda(
-                     *args, general=True, **kw10))
-    turns = {name: [] for name in forms}
-    for name in ("first", "general", "general", "first"):
-        turns[name].append((cuda_ms(forms[name], reps=10),
-                            device_sum_ms(forms[name], calls=10)))
-    m160 = {f"{name}_{unit}": float(np.mean([t[i] for t in turns[name]]))
-            for name in forms for i, unit in enumerate(("ms", "device_ms"))}
-    print(f"K2 forms at M = {N * inp['knn']}, in turns (first, general, "
-          f"general, first): " + json.dumps(m160), flush=True)
-    row2 = dict(name="K2 score_matches_all", route="cuda",
+    row2 = dict(name="K2 score_matches (all matches)", route="cuda",
                 source="line3dpp_tpu_torch/csrc/scoring.cu",
                 replaces="line3dpp_tpu/ops/scoring_pallas.py:231",
                 max_abs_err=err, ms=k2_ms, device_ms=k2_dev,
@@ -2760,8 +2703,8 @@ def general_kernel_checks(inp, cfg, dev) -> tuple[list, dict]:
                 plain_shape=f"knn = {K2_WIDE_KNN}, views 0-2",
                 bound_ms=b_ms, bound_by=by, library_ms=None,
                 shape=f"M = {N * S}, views 0-2", work=n,
-                forms_at_m160=m160)
-    del a, b, args, pm, t, tb
+                launch_path="all_matches")
+    del t, tb
     torch.cuda.empty_cache()
     return [row20, row1, row2], n
 
@@ -3092,18 +3035,14 @@ def item14_15_phase(views, cfg, dev, fused_txt: bytes) -> dict:
             f"auto-blocking source views at view_block="
             f"{(2 << 30) // (S * N * S * 4)}")
     phases["printed"] = line
-    phases["launches"] = {k: launches[k] for k in (
-        "match_pairs", "match_pairs_all", "score_matches",
-        "score_matches_all", "gather_target_estimates")}
+    phases["launches"] = {k: launches[k] for k in STEP_ONCE}
     out["all_matches"] = phases
-    out["all_matches_launches"] = dict(launches)
     print("all matches (knn=0), 26 views: " + json.dumps(phases), flush=True)
     check(line == want and want.endswith("view_block=3"),
           f"all matches: printed {line!r}, not {want!r}")
-    check(launches["match_pairs_all"] == 9
-          and launches["score_matches_all"] == 9
+    check(launches["match_pairs"] == 9 and launches["score_matches"] == 9
           and launches["gather_target_estimates"] == 0,
-          "all matches: K1's and K2's general forms not once per block")
+          "all matches: K1 and K2 not once per block, or K3 launched")
     check(phases["lines"] > 0, "all matches: no lines")
     del pipe
     torch.cuda.empty_cache()
@@ -3111,13 +3050,11 @@ def item14_15_phase(views, cfg, dev, fused_txt: bytes) -> dict:
     # F3: knn = 20 fused
     pipe, phases, launches, _ = run_views(dataclasses.replace(cfg, knn=20),
                                           cams)
-    phases["launches"] = {k: launches[k] for k in (
-        "match_pairs", "match_pairs_all", "score_matches",
-        "score_matches_all", "gather_target_estimates")}
+    phases["launches"] = {k: launches[k] for k in STEP_ONCE}
     out["knn20"] = phases
     print("knn=20, 26 views, fused: " + json.dumps(phases), flush=True)
-    check(launches["match_pairs_all"] == 1 and launches["score_matches"] == 1,
-          "knn=20: not K1's general form and K2's first form (M = 320)")
+    check(all(launches[k] == 1 for k in STEP_ONCE),
+          "knn=20: not K1, K2 and K3 once")
     del pipe
     torch.cuda.empty_cache()
     return out
@@ -3355,12 +3292,12 @@ def main() -> None:
     for line in ptxas_report(build_log):
         print("  ptxas: " + line, flush=True)
     sass = cuobjdump_sass(lib)
-    k1_sass = k1_sass_info(sass, knn=10)
+    k1_sass = k1_sass_info(sass)
     k2_sass = k2_sass_info(sass)
     if opts.out and sass:
         os.makedirs(opts.out, exist_ok=True)
         with open(os.path.join(opts.out, "k2_sass.txt"), "w") as f:
-            f.write(sass_function(sass, "score_kernel") or "")
+            f.write(sass_function(sass, "score_all_kernel") or "")
     t0 = time.perf_counter()
     n_bad, first_bad = sincos_differences(dev)
     print(f"[K8] sincosf against sinf and cosf on all 2^32 float32 "
@@ -3452,13 +3389,12 @@ def main() -> None:
     del pipe
     torch.cuda.empty_cache()
 
-    # ---- K1's and K2's general forms; the blocked path, all matches and
-    # knn = 20 through the entry points; the sharded step over NCCL
-    general_rows, _ = general_kernel_checks(inp, cfg, dev)
-    rows += general_rows
+    # ---- K1 and K2 past the cells' k and M; the blocked path, all matches
+    # and knn = 20 through the entry points; the sharded step over NCCL
+    wide_rows, _ = wide_kernel_checks(inp, cfg, dev)
+    rows += wide_rows
     item14_15 = item14_15_phase(views, cfg, dev, fused_txt)
     item14_15["sharded_nccl_world1"] = sharded_world1(inp, cfg, dev)
-    all_matches_launches = item14_15.pop("all_matches_launches")
     torch.cuda.empty_cache()
 
     # ---- the weak-scaling tool's path and the clustering records
@@ -3552,12 +3488,11 @@ def main() -> None:
         r["launches"] = r.pop("pipeline_launches", launches[key])
         r["launches_default"] = default_launches[key]
         r["launches_rect_improve"] = rect_launches[key]
-        if key in ("match_pairs_all", "score_matches_all"):
-            # the general forms' paths: all matches on the 26 views, or
-            # the knn = 20 run for K1's row at k = 20
-            path = r.pop("launch_path", None)
-            r["launches"] = (item14_15[path]["launches"][key] if path
-                             else all_matches_launches[key])
+        path = r.pop("launch_path", None)
+        if path:
+            # the rows past the cells' k and M: all matches on the 26
+            # views, or the knn = 20 run for K1's row at k = 20
+            r["launches"] = item14_15[path]["launches"][key]
     print(json.dumps({"undistort": undistorted}), flush=True)
     print(json.dumps({"facade_rounds": facade_rounds}), flush=True)
     print(json.dumps({"full_size": full}), flush=True)

@@ -55,9 +55,8 @@ STEP_OPTIONS = dict(
     epipolar_overlap=0.25, knn=10, two_sig_a_sqr=200.0, min_similarity=0.5,
     check_orientation=True, min_best_score=0.75, min_best_score_perc=0.10,
     min_affinity=0.5, pair_chunk=8)
-# the kernels of the step: K1, K2 (their general forms too) and K3
-STEP_KERNELS = ("match_pairs", "match_pairs_all", "score_matches",
-                "score_matches_all", "gather_target_estimates")
+# the kernels of the step: K1, K2 and K3
+STEP_KERNELS = ("match_pairs", "score_matches", "gather_target_estimates")
 
 
 def make_workload(V=26, S=3000, N=10, seed=0):

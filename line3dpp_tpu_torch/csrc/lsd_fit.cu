@@ -129,9 +129,9 @@ __device__ __forceinline__ float decode(int i) {
 // What bounds the consume form: memory, 16 B read per pixel (slot, x, y,
 // ang), 12 B read (an 8 B index, mag) and 16 B written per survivor, and
 // the table rows.  Switched off in turns at 57% active on an H100 80GB
-// HBM3 at 700 W (tests/measure_torch_k6_k9.py --consume-variants), the
-// survivor writes cost 13 us of its 55 us, the look-back 11 us and the
-// payload loads 8 us.
+// HBM3 at 700 W (tests/measure_torch_k6_k9.py --consume-variants at
+// d36bf17), the survivor writes cost 13 us of its 55 us, the look-back
+// 11 us and the payload loads 8 us.
 
 // the consume form's layout: threads a block, and pixels a thread for
 // short lists and for long ones (lsd_fit.consume_items)
@@ -678,12 +678,12 @@ __global__ void __launch_bounds__(THREADS, MINB) extents_kernel(
 // it: memory, 16 B a pixel (slot, x, y, pix; the kernel reads the angle of
 // every pixel with them, the function needs it only inside the p/2 band),
 // the tables and the (C, cols) output.  Measured on an H100 80GB HBM3 at
-// 700 W (tests/measure_torch_k10.py), it is latency-bound instead: 7.3 us
-// on the facade's round 1, 66 us at 57% active against a bound of 18 us,
-// where one band alone takes 30 us (the loads, the table rows, the scan and
-// the look-back), the other 14 bands 20 us more at 104-128 registers, and
-// the p/2 column 16 us.  tests/test_torch_kernel_design.py mirrors the
-// split in torch.
+// 700 W (tests/measure_torch_k10.py at b2f9d52), it is latency-bound
+// instead: 7.3 us on the facade's round 1, 66 us at 57% active against a
+// bound of 18 us, where one band alone takes 30 us (the loads, the table
+// rows, the scan and the look-back), the other 14 bands 20 us more at
+// 104-128 registers, and the p/2 column 16 us.
+// tests/test_torch_kernel_design.py mirrors the split in torch.
 
 constexpr int kMaxBands = 16;
 
@@ -1538,8 +1538,8 @@ extern "C" int l3d_extents(const int* slot, const float* xs, const float* ys,
   // thousands): wider blocks read the long runs in fewer rounds; else
   // (real photos' round 1, tens of pixels) narrow blocks with 64 pixels
   // read past each span (on an H100 80GB HBM3 at 700 W, in turns by
-  // tests/measure_torch_k2_k11.py --k11-layouts: 7.7 against 9.5 us on the
-  // facade, 28.8 against 34.2 us at 57% active)
+  // tests/measure_torch_k2_k11.py --k11-layouts at f9a3047: 7.7 against
+  // 9.5 us on the facade, 28.8 against 34.2 us at 57% active)
   if ((int64_t)n >= 512 * (int64_t)C)
     return launch_extents<256, 4, 1, 1>(slot, xs, ys, pix, tables, starts, n,
                                         C, vec, out, s);

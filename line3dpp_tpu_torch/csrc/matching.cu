@@ -8,55 +8,53 @@
 // of the four plane-ray triangulation depths, and the k best valid matches
 // of each source segment by overlap, ties to the lowest target index.
 //
-// What bounds it on the H100: instruction issue.  Every candidate (s, c)
-// costs about 36 f32 operations before its overlap is known.  P*S*S is
-// 3.7e9 candidates over all 416 pair slots of the bundled 26-view scene;
-// the kernel evaluates the valid pairs times the unmasked segments of both
-// views, 2.48e9, against about 0.3 GB of input and output.  On that scene
-// 2.7% of the candidates cross the target segment and 0.74% reach an
-// overlap of 0.25, but a warp of 32 source segments takes the slow path
-// whenever one lane does: 18% of the (warp, target) steps have a lane that
-// crosses (tests/measure_torch_k1_k4.py).  Design:
-//  * a cheap pre-test first: t1, t2 from rcp.approx and one product, and a
-//    reject only when even the most favourable values within a proven
-//    margin fail the exact tests (pretest_keeps below).  The survivors run
-//    the exact path, unchanged: so the selected set, its order and the
-//    values stay bit for bit those of the plain torch version;
-//  * the reject path reads one float4 per target (x1, y1, x2 - x1, y2 - y1,
-//    zeros for masked targets and past S, which the |e.dq| > eps test
-//    rejects), a broadcast from shared memory; the depth-sign fields are
-//    read from device memory (L1/L2) on the rare pass path only;
-//  * GROUP = 32 targets per step: their pre-tests are independent, and
-//    the survivors of the step are then taken in index order, so a warp
-//    runs the exact path once for each survivor of its busiest lane, not
-//    once for each target that one lane keeps (on the card 4 targets a
-//    step took 6.1 ms, 16 took 5.3, 32 took 5.1);
-//  * the float4 table of the target view streams through shared memory in
-//    chunks of CHUNK with cp.async, double-buffered: chunk i + 1 is in
-//    flight while chunk i is scanned;
-//  * the kernel is a template on k, so the sorted top-k list is exactly k
-//    registers of overlap and k of index, and insertion is fully unrolled;
-//  * products, sums and quotients of the exact path use __fmul_rn/
-//    __fadd_rn/__fdiv_rn (no FMA contraction) in the order of the plain
-//    torch version (ops/matching.py:match_pairs_plain).
+// One design serves every k (1 <= k <= S; k = S keeps every match, the
+// reference's kNN <= 0).  What bounds it on the H100 at the cells' k:
+// instruction issue.  Every candidate (s, c) costs about 36 f32 operations
+// before its overlap is known.  P*S*S is 3.7e9 candidates over all 416 pair
+// slots of the bundled 26-view scene; the kernel evaluates the valid pairs
+// times the unmasked segments of both views, 2.48e9, against about 0.3 GB
+// of input and output.  On that scene 2.7% of the candidates cross the
+// target segment and 0.74% reach an overlap of 0.25, but a warp of 32
+// source segments takes the slow path whenever one lane does: 18% of the
+// (warp, target) steps have a lane that crosses
+// (tests/measure_torch_k1_k4.py at 4ddabe5).  At k = S the writes bound
+// it: 6 x (P, S, S) outputs and the validity, 25 B a slot.
 //
-// The general form, for k > KMAX (any k <= S; k = S keeps every match, the
-// reference's kNN <= 0): the same scan (a thread per source segment, the
-// target table broadcast from shared memory, the same pre-test and exact
-// path), the kept keys (~overlap bits) << 32 | target in a sorted list of
-// L = min(k, list_len) keys per thread in shared memory, slot-major.  For
-// k <= L the list is the exact top-k (a candidate must beat its k-th key,
-// as in the insertion form); for k > L it holds every passing key, and a
-// row with more than L is flagged and finished by the overflow path, a
-// warp per flagged row that lists every passing key by ballot (in shared
-// memory up to LIST_SMEM keys, then in a per-warp region of a global
-// scratch) and sorts it, launched behind the block form on a persistent
-// grid that reads the flagged count on the device.  Ascending keys are
-// descending overlaps with ties to the lowest index.  A warp per row then
-// writes the block's rows, a lane per slot (the first keys with their
-// depths by winner_depths, zeros after): a row's k slots are contiguous
-// stores.  The writes bound it at k = S: 6 x (P, S, S) outputs, 24 B a
-// slot; at k = 20 the candidates' operations do.
+//  * The scan (match_list_kernel): a thread per source segment, a block of
+//    TILE sources of one pair.  The target view's float4 table (x1, y1,
+//    x2 - x1, y2 - y1, zeros for masked targets and past S, which the
+//    |e.dq| > eps test rejects) and its lengths stream through shared
+//    memory in chunks of CHUNK with cp.async, double-buffered: chunk i + 1
+//    is in flight while chunk i is scanned, and each target is a broadcast.
+//  * The pre-test: t1, t2 from rcp.approx and one product, and a reject
+//    only when even the most favourable values within a proven margin fail
+//    the exact tests (pretest_keeps below).  The survivors run the exact
+//    path, unchanged: products, sums and quotients in __fmul_rn/__fadd_rn/
+//    __fdiv_rn (no FMA contraction) in the order of the plain torch version
+//    (ops/matching.py:match_pairs_plain), so the selected set, its order
+//    and the values stay bit for bit the plain version's.  The depth-sign
+//    fields are read from device memory (L1/L2) on the rare pass path only.
+//  * GROUP = 32 targets a step: their pre-tests are independent, and the
+//    survivors of the step are then taken in index order, so a warp runs
+//    the exact path once for each survivor of its busiest lane, not once
+//    for each target that one lane keeps (on the card 4 targets a step
+//    took 6.1 ms, 16 took 5.3, 32 took 5.1).
+//  * The list: each thread keeps its matches in L = min(k, list_len) slots
+//    of shared memory, slot-major.  For k <= L they are the exact top-k as
+//    sorted keys (~overlap bits) << 32 | target, ascending = descending
+//    overlap with ties to the lowest index, and a candidate must beat the
+//    k-th key; for k > L the list holds every passing target in target
+//    order, ranked when the row is written.  A writer warp beside the
+//    scanning threads writes the zeros of the block's rows while they
+//    scan; then a warp per row writes its kept slots, a lane per slot (the
+//    first keys with their depths by winner_depths and the validity).
+//  * The overflow path (match_all_kernel), for k > L: a row with more than
+//    L matches is flagged and finished by a warp per flagged row that lists
+//    every passing key by ballot (in shared memory up to LIST_SMEM keys,
+//    then in a per-warp region of a global scratch) and sorts it, launched
+//    behind the scan on a persistent grid that reads the flagged count on
+//    the device.
 
 // The pre-test's margin.  rcp.approx.f32 has an absolute error of at most
 // 2^-23 on [1, 2] (PTX ISA), so a relative error below 2^-22 at any input
@@ -82,7 +80,6 @@ namespace {
 constexpr int TILE = 128;   // source segments per block, one per thread
 constexpr int CHUNK = 512;  // target float4s per shared-memory buffer
 constexpr int GROUP = 32;   // targets pre-tested per step (CHUNK % GROUP == 0)
-constexpr int KMAX = 16;    // largest k of the insertion form
 constexpr int ALL_WARPS = 4;        // overflow path: warps per block
 constexpr int LIST_SMEM = 1024;     // overflow path: keys per warp in shared
 constexpr float EPS = 1e-12f;
@@ -268,149 +265,11 @@ __device__ __forceinline__ void winner_depths(const Src& r, float nsrc,
                                 ray2[g + 2])));
 }
 
-template <int K>
-__device__ __forceinline__ void insert_topk(float (&ov)[K], int32_t (&ix)[K],
-                                            float overlap, int32_t tc) {
-  // insert at slot k-1, then bubble up; an equal overlap never passes an
-  // earlier (lower-index) entry
-  ov[K - 1] = overlap;
-  ix[K - 1] = tc;
-#pragma unroll
-  for (int j = K - 1; j > 0; --j) {
-    if (ov[j] > ov[j - 1]) {
-      const float fo = ov[j]; ov[j] = ov[j - 1]; ov[j - 1] = fo;
-      const int32_t io = ix[j]; ix[j] = ix[j - 1]; ix[j - 1] = io;
-    }
-  }
-}
-
-template <int K>
-__global__ void __launch_bounds__(TILE) match_kernel(
-    const float4* __restrict__ tq,          // (V, S) x1 y1 dx dy, 0 if masked
-    const uint8_t* __restrict__ mask,       // (V, S)
-    const float* __restrict__ ray1,         // (V, S, 3)
-    const float* __restrict__ ray2,         // (V, S, 3)
-    const float* __restrict__ nrm,          // (V, S, 3) segment plane normals
-    const float* __restrict__ seglen,       // (V, S)
-    const float* __restrict__ e1t,          // (P, S, 3) F p1h
-    const float* __restrict__ e2t,          // (P, S, 3) F p2h
-    const float* __restrict__ num_src,      // (P, S) per target segment
-    const float* __restrict__ num_tgt,      // (P, S) per source segment
-    const int32_t* __restrict__ src_idx,    // (P,)
-    const int32_t* __restrict__ tgt_idx,    // (P,)
-    const uint8_t* __restrict__ pair_valid, // (P,)
-    int S, float epipolar_overlap,
-    int32_t* __restrict__ out_idx,          // (P, S, K)
-    float* __restrict__ out_ov, float* __restrict__ out_dp1,
-    float* __restrict__ out_dp2, float* __restrict__ out_dq1,
-    float* __restrict__ out_dq2) {
-  __shared__ float4 buf[2][CHUNK];
-
-  const int p = blockIdx.x;
-  const int s = blockIdx.y * TILE + threadIdx.x;
-  const int64_t ps = (int64_t)p * S;
-  const int64_t src_row = (int64_t)src_idx[p] * S;
-  const int64_t tgt_row = (int64_t)tgt_idx[p] * S;
-  const bool pair_ok = pair_valid[p] != 0;  // uniform over the block
-  const bool active = pair_ok && s < S && mask[src_row + s] != 0;
-
-  // sorted top-k: overlap descending, then index ascending; 0 = empty slot
-  float ov[K];
-  int32_t ix[K];
-#pragma unroll
-  for (int j = 0; j < K; ++j) {
-    ov[j] = 0.0f;
-    ix[j] = 0;
-  }
-  float thr = 0.0f;  // overlap a candidate must beat: the k-th best so far
-
-  Src r{};
-  if (active)
-    r = load_src(e1t, e2t, ray1, ray2, nrm, num_tgt, ps, src_row, s);
-
-  if (pair_ok) {
-    const float4* tab = tq + tgt_row;
-    const int nchunk = (S + CHUNK - 1) / CHUNK;
-    auto stage = [&](int chunk) {
-      float4* dst = buf[chunk & 1];
-      const int base = chunk * CHUNK;
-      for (int c = threadIdx.x; c < CHUNK; c += TILE) {
-        const int t = base + c;
-        // past S: zero fill, which the |e.dq| > eps test rejects
-        cp_async16(dst + c, tab + min(t, S - 1), t < S);
-      }
-      cp_async_commit();
-    };
-    stage(0);
-    for (int chunk = 0; chunk < nchunk; ++chunk) {
-      if (chunk + 1 < nchunk) {
-        stage(chunk + 1);
-        cp_async_wait<1>();
-      } else {
-        cp_async_wait<0>();
-      }
-      __syncthreads();
-      if (active) {
-        const float4* cur = buf[chunk & 1];
-        const int base = chunk * CHUNK;
-        const int n = min(CHUNK, S - base);
-        for (int c = 0; c < n; c += GROUP) {
-          // thr only grows within the step: an older cut is conservative
-          const float cut = fmaxf(epipolar_overlap, thr);
-          unsigned keep = 0;
-#pragma unroll
-          for (int u = 0; u < GROUP; ++u)
-            keep |= (unsigned)pretest_target(r.e, cur[c + u], cut) << u;
-          while (keep) {
-            const int u = __ffs(keep) - 1;
-            keep &= keep - 1;
-            // the exact path, as the plain version evaluates it
-            const int32_t tc = base + c + u;
-            const int64_t g = tgt_row + tc;
-            float overlap;
-            if (!exact_overlap(r.e, cur[c + u], seglen + g, overlap))
-              continue;
-            if (!(overlap > epipolar_overlap && overlap > thr)) continue;
-            if (!depth_signs_ok(r, __ldg(num_src + ps + tc), nrm, ray1, ray2,
-                                g))
-              continue;
-            insert_topk<K>(ov, ix, overlap, tc);
-            thr = ov[K - 1];
-          }
-        }
-      }
-      __syncthreads();  // the buffer is refilled two chunks later
-    }
-  }
-
-  if (s >= S) return;
-  const int64_t o = (ps + s) * K;
-#pragma unroll
-  for (int j = 0; j < K; ++j) {
-    int32_t idx = 0;
-    float ovj = 0.0f, dp1 = 0.0f, dp2 = 0.0f, dq1 = 0.0f, dq2 = 0.0f;
-    if (ov[j] > 0.0f) {
-      idx = ix[j];
-      ovj = ov[j];
-      winner_depths(r, num_src[ps + idx], nrm, ray1, ray2, tgt_row + idx,
-                    dp1, dp2, dq1, dq2);
-    }
-    out_idx[o + j] = idx;
-    out_ov[o + j] = ovj;
-    out_dp1[o + j] = dp1;
-    out_dp2[o + j] = dp2;
-    out_dq1[o + j] = dq1;
-    out_dq2[o + j] = dq2;
-  }
-}
-
-// ---- the general form (any k <= S)
-
 using Key = unsigned long long;  // a sort key (the shuffles take this type)
 constexpr int LIST_PAD = TILE + 1;  // keys from one slot of the lists to the
                                     // next: a warp reading one row's slots
                                     // meets each bank at most twice
-constexpr int LIST_MAX = 128;       // longest list the block form takes
+constexpr int LIST_MAX = 128;       // longest list the scan takes
 
 // sort key: ascending = overlap descending (overlap > 0), index ascending
 __device__ __forceinline__ Key match_key(float overlap, int32_t tc) {
@@ -447,8 +306,8 @@ __device__ __forceinline__ void zero_bytes(uint8_t* q, int64_t n, int lane) {
   if (lane < n - done) q[done + lane] = 0;
 }
 
-// Barriers of the block form: its TILE scanning threads only (the writer
-// warp does not take part), and all of its threads.
+// Barriers of the scan: its TILE scanning threads only (the writer warp
+// does not take part), and all of its threads.
 __device__ __forceinline__ void scan_sync() {
   asm volatile("bar.sync 1, %0;" ::"n"(TILE) : "memory");
 }
@@ -456,20 +315,19 @@ __device__ __forceinline__ void block_sync() {
   asm volatile("bar.sync 2, %0;" ::"n"(TILE + 32) : "memory");
 }
 
-// The block form: the insertion form's scan (a thread per source segment,
-// the target table and the targets' lengths staged through shared memory
-// and broadcast, so the exact path reads no device memory, GROUP
-// targets pre-tested a step), each thread's kept matches in a list of L in
-// shared memory, slot-major ([slot][thread]).  k <= L: the list holds the
-// exact top-k as sorted keys, a candidate must beat its k-th overlap (thr).
-// k > L: the list holds every passing target in target order (4 B a slot,
-// so more blocks fit an SM), whose keys the write phase recomputes by the
-// same exact path and ranks; a row with more than L is flagged and left to
-// match_all_kernel.  A writer warp beside the TILE scanning threads
-// writes the zeros of the block's rows (one contiguous span of each
-// output) by 16-byte stores while they scan, so that the writes that bound
-// k = S overlap the scan; then a warp per row writes the kept slots, a
-// lane per slot.
+// The scan: a thread per source segment (the target table and the targets'
+// lengths staged through shared memory and broadcast, so the exact path
+// reads no device memory, GROUP targets pre-tested a step), each thread's
+// kept matches in a list of L in shared memory, slot-major ([slot][thread]).
+// k <= L: the list holds the exact top-k as sorted keys, a candidate must
+// beat its k-th overlap (thr).  k > L: the list holds every passing target
+// in target order (4 B a slot, so more blocks fit an SM), whose keys the
+// write phase recomputes by the same exact path and ranks; a row with more
+// than L is flagged and left to match_all_kernel.  A writer warp beside the
+// TILE scanning threads writes the zeros of the block's rows (one
+// contiguous span of each output) by 16-byte stores while they scan, so
+// that the writes that bound k = S overlap the scan; then a warp per row
+// writes the kept slots, a lane per slot.
 __global__ void __launch_bounds__(TILE + 32) match_list_kernel(
     const float4* __restrict__ tq, const uint8_t* __restrict__ mask,
     const float* __restrict__ ray1, const float* __restrict__ ray2,
@@ -785,7 +643,7 @@ __global__ void __launch_bounds__(32 * ALL_WARPS) match_all_kernel(
     }
     __syncwarp();
     const int64_t o = (ps + s) * k;
-    for (int j = lane; j < m; j += 32) {  // the zeros are the block form's
+    for (int j = lane; j < m; j += 32) {  // the zeros are the scan's
       const Key key = list[j];
       const int32_t idx = (int32_t)(uint32_t)key;
       const float ovj = key_overlap(key);
@@ -829,45 +687,12 @@ extern "C" int64_t l3d_match_all_scratch(int S) {
   return (int64_t)all_blocks() * ALL_WARPS * next_pow2(S);
 }
 
+// Any 1 <= knn <= S, with the slots' validity written beside the six
+// outputs.  The scan keeps lists of L = min(knn, list_len) keys; for
+// knn > L the rows past L are listed in ``flagged`` (room for P * S rows)
+// with their count in ``n_flagged``, and the overflow path, launched behind
+// it, finishes them (``scratch``: l3d_match_all_scratch(S) keys).
 extern "C" int l3d_match_pairs(
-    const float* tq, const uint8_t* mask, const float* ray1,
-    const float* ray2, const float* nrm, const float* seglen,
-    const float* e1, const float* e2, const float* num_src,
-    const float* num_tgt, const int32_t* src_idx, const int32_t* tgt_idx,
-    const uint8_t* pair_valid, int P, int S, int knn, float epipolar_overlap,
-    int32_t* out_idx, float* out_ov, float* out_dp1, float* out_dp2,
-    float* out_dq1, float* out_dq2, void* stream) {
-  if (knn < 1 || knn > KMAX || ((uintptr_t)tq & 15))
-    return (int)cudaErrorInvalidValue;
-  if (P == 0 || S == 0) return 0;
-  const dim3 grid(P, (S + TILE - 1) / TILE);
-  cudaStream_t st = (cudaStream_t)stream;
-  const float4* q4 = reinterpret_cast<const float4*>(tq);
-#define L3D_MATCH_CASE(K)                                                   \
-  case K:                                                                   \
-    match_kernel<K><<<grid, TILE, 0, st>>>(                                 \
-        q4, mask, ray1, ray2, nrm, seglen, e1, e2, num_src, num_tgt,        \
-        src_idx, tgt_idx, pair_valid, S, epipolar_overlap, out_idx, out_ov, \
-        out_dp1, out_dp2, out_dq1, out_dq2);                                \
-    break;
-  switch (knn) {
-    L3D_MATCH_CASE(1) L3D_MATCH_CASE(2) L3D_MATCH_CASE(3) L3D_MATCH_CASE(4)
-    L3D_MATCH_CASE(5) L3D_MATCH_CASE(6) L3D_MATCH_CASE(7) L3D_MATCH_CASE(8)
-    L3D_MATCH_CASE(9) L3D_MATCH_CASE(10) L3D_MATCH_CASE(11)
-    L3D_MATCH_CASE(12) L3D_MATCH_CASE(13) L3D_MATCH_CASE(14)
-    L3D_MATCH_CASE(15) L3D_MATCH_CASE(16)
-  }
-#undef L3D_MATCH_CASE
-  return (int)cudaGetLastError();
-}
-
-// The general form: any 1 <= knn <= S, with the slots' validity written
-// beside the six outputs.  The block form keeps lists of
-// L = min(knn, list_len) keys; for knn > L the rows past L are listed in
-// ``flagged`` (room for P * S rows) with their count in ``n_flagged``, and
-// the overflow path, launched behind it, finishes them (``scratch``:
-// l3d_match_all_scratch(S) keys).
-extern "C" int l3d_match_pairs_all(
     const float* tq, const uint8_t* mask, const float* ray1,
     const float* ray2, const float* nrm, const float* seglen,
     const float* e1, const float* e2, const float* num_src,

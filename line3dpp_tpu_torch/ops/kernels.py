@@ -13,19 +13,17 @@ and returns ``cudaGetLastError()``; :func:`launch` raises when that is not 0.
 whole process; each wrapper counts its launch through
 ``line3dpp_tpu_torch.obs.launched``, which while spans record also adds
 the launch to the innermost open span (``obs.summary``).  The wrappers
-are in ``ops/matching.py`` (K1: ``match_pairs``, the insertion form, and
-``match_pairs_all``, the general form), ``ops/scoring.py`` (K2:
-``score_matches`` and ``score_matches_all``, its general form), ``ops/affinity.py`` (K3),
-``ops/lsd_cc.py`` (K4), ``ops/lsd_gather.py`` (K5, K6: ``gather_labels``
-and ``gather_merged``) and ``ops/lsd_fit.py`` (K7-K11; K9:
-``gate_pixels`` and ``consume_survivors``; K10: ``band_counts`` and
-``rescue_counts``).  Two kernels replace no Pallas kernel: line bundling's
-Levenberg-Marquardt loop, ``csrc/bundling.cu`` behind
-``ops/bundling.lm_optimize_cuda`` (``lm_bundle``), and the collinearity
-edges, ``csrc/collinearity.cu`` behind
-``ops/collinearity.collinear_edges_cuda`` (``collinear_edges``: a count
-and a write launch, counted once a call); the JAX package computes both
-with XLA.
+are in ``ops/matching.py`` (K1: ``match_pairs``), ``ops/scoring.py`` (K2:
+``score_matches``), ``ops/affinity.py`` (K3), ``ops/lsd_cc.py`` (K4),
+``ops/lsd_gather.py`` (K5, K6: ``gather_labels`` and ``gather_merged``)
+and ``ops/lsd_fit.py`` (K7-K11; K9: ``gate_pixels`` and
+``consume_survivors``; K10: ``band_counts`` and ``rescue_counts``).  Two
+kernels replace no Pallas kernel: line bundling's Levenberg-Marquardt
+loop, ``csrc/bundling.cu`` behind ``ops/bundling.lm_optimize_cuda``
+(``lm_bundle``), and the collinearity edges, ``csrc/collinearity.cu``
+behind ``ops/collinearity.collinear_edges_cuda`` (``collinear_edges``: a
+count and a write launch, counted once a call); the JAX package computes
+both with XLA.
 """
 
 from __future__ import annotations
@@ -47,8 +45,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC"]
 LIB_NAME = "libl3dkernels.so"
 
-LAUNCHES = {"match_pairs": 0, "match_pairs_all": 0, "score_matches": 0,
-            "score_matches_all": 0,
+LAUNCHES = {"match_pairs": 0, "score_matches": 0,
             "gather_target_estimates": 0, "cc_tiles": 0,
             "apply_merge_dense": 0, "gather_labels": 0, "gather_merged": 0,
             "moments": 0, "gate_moments": 0, "gate_pixels": 0,
@@ -59,23 +56,15 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 _U = ctypes.c_uint
 _SIGNATURES = {
     # 13 inputs (the first the (V, S, 4) target table), P S knn,
-    # epipolar_overlap, 6 outputs, stream
-    "l3d_match_pairs": [_P] * 13 + [_I] * 3 + [_F] + [_P] * 6 + [_P],
-    # the same, then list_len, the overflow path's key scratch, flagged
-    # rows and their count, 6 outputs and the validity, stream (the
-    # general form)
-    "l3d_match_pairs_all": ([_P] * 13 + [_I] * 3 + [_F] + [_I] + [_P] * 3
-                            + [_P] * 7 + [_P]),
+    # epipolar_overlap, list_len, the overflow path's key scratch, flagged
+    # rows and their count, 6 outputs and the validity, stream
+    "l3d_match_pairs": ([_P] * 13 + [_I] * 3 + [_F] + [_I] + [_P] * 3
+                        + [_P] * 7 + [_P]),
     # 10 inputs, V S M N knn, two_sig_a_sqr min_similarity, orientation,
-    # the pre-test's cos_lo lp, 2 outputs, stream
-    "l3d_score_matches": ([_P] * 10 + [_I] * 5 + [_F] * 2 + [_I] + [_F] * 2
-                          + [_P] * 2 + [_P]),
-    # the same inputs and options, records a segment, the overflow path's
+    # the pre-test's cos_lo lp, records a segment, the overflow path's
     # record scratch, flagged segments and their count, 2 outputs, stream
-    # (the general form)
-    "l3d_score_matches_all": ([_P] * 10 + [_I] * 5 + [_F] * 2 + [_I]
-                              + [_F] * 2 + [_I] + [_P] * 5 + [_P] * 2
-                              + [_P]),
+    "l3d_score_matches": ([_P] * 10 + [_I] * 5 + [_F] * 2 + [_I] + [_F] * 2
+                          + [_I] + [_P] * 5 + [_P] * 2 + [_P]),
     # 4 inputs, V_tab S V M N knn, 2 outputs, stream
     "l3d_gather_target_estimates": [_P] * 4 + [_I] * 6 + [_P] * 2 + [_P],
     # angle active, hp wp th tw ph pw, tol, labels unconverged, stream

@@ -134,8 +134,8 @@ def consume_items(n: int, sms: int) -> int:
     cut into short tiles, so it spreads over more blocks; a longer one (real
     photos' round 1, millions) takes long tiles, fewer look-backs.  On an
     H100 80GB HBM3 at 700 W, by ``tests/measure_torch_k6_k9.py
-    --consume-layouts``: 4.8 against 5.7 µs on the facade, 55.3 against
-    64.7 µs at 57% active."""
+    --consume-layouts`` at ``d36bf17``: 4.8 against 5.7 µs on the facade,
+    55.3 against 64.7 µs at 57% active."""
     long_list = sms * CONSUME_THREADS * CONSUME_ITEMS_LONG
     return CONSUME_ITEMS_LONG if n >= long_list else CONSUME_ITEMS_SHORT
 
@@ -147,8 +147,9 @@ def count_span(n: int, sms: int) -> int:
     tens of thousands of pixels) is cut into short spans, so each warp's
     chain of loads is short; a longer one (real photos' round 1, millions)
     into long spans, which keep more loads in flight.  On an H100 80GB HBM3
-    at 700 W, by ``tests/measure_torch_k10.py --layouts``, 16 columns: 7.9
-    against 10.5 µs on the facade, 66.0 against 74.0 µs at 57% active."""
+    at 700 W, by ``tests/measure_torch_k10.py --layouts`` at ``b2f9d52``,
+    16 columns: 7.9 against 10.5 µs on the facade, 66.0 against 74.0 µs at
+    57% active."""
     wave = sms * COUNT_BLOCKS_LONG * COUNT_THREADS // 32 * COUNT_SPAN_LONG
     return COUNT_SPAN_SHORT if n < wave else COUNT_SPAN_LONG
 
@@ -229,8 +230,9 @@ def fit_threads(n: int, C: int) -> int:
     threads read the runs going on past a block's tiles in half the rounds;
     else (real photos' round 1, tens of pixels) 256 threads, 3 blocks an
     SM.  On an H100 80GB HBM3 at 700 W, in turns by
-    ``tests/measure_torch_k7_k8.py --layouts``: K8 11.7 against 13.5 µs on
-    the facade, K7 32.9 against 36.1 µs at 57% active."""
+    ``tests/measure_torch_k7_k8.py --layouts`` at ``f9a3047``: K8 11.7
+    against 13.5 µs on the facade, K7 32.9 against 36.1 µs at 57%
+    active."""
     return FIT_THREADS_LONG if n >= 512 * C else FIT_THREADS
 
 

@@ -14,8 +14,7 @@ slot: slot m belongs to neighbour group ``m // k``, and a group shares one
 target camera.  :func:`score_matches` launches kernel K2
 (``csrc/scoring.cu``) for CUDA tensors and runs :func:`score_matches_plain`
 for CPU tensors; both follow ``line3dpp_tpu.ops.scoring`` (the XLA path,
-with ``arccos``).  K2 has two forms: M <= ``M_SMEM`` and the general form
-for any M (``Config.knn <= 0`` gives M = N * S).
+with ``arccos``).  K2 takes any M (``Config.knn <= 0`` gives M = N * S).
 """
 
 from __future__ import annotations
@@ -44,10 +43,8 @@ PRETEST_ANGLE_REL = 2.0**-12
 PRETEST_ANGLE_ABS = 2.0**-10
 PRETEST_DOT_ABS = 2.0**-18
 PRETEST_MIN_SIM = 2.0**-100
-M_SMEM = 1024   # largest M of K2's first form (csrc/scoring.cu M_SMEM)
-RECORDS = 768   # valid slots a segment that K2's general form keeps in
-#                 shared memory (at most 6144); a segment with more takes
-#                 its overflow path
+RECORDS = 768   # valid slots a segment that K2 keeps in shared memory (at
+#                 most 6144); a segment with more takes its overflow path
 PLAIN_PLANE = 1 << 24   # elements of one pairwise plane of the plain version
 
 
@@ -210,16 +207,13 @@ def score_matches_cuda(r1, r2, rmid, C, k_reg, tgt_C, tgt_k, d_p1, d_p2,
                        valid, *, knn: int, two_sig_a_sqr: float,
                        min_similarity: float = 0.5,
                        check_orientation: bool = True,
-                       pretest: bool = True,
-                       general: bool | None = None) -> ScoredMatches:
-    """Kernel K2 on CUDA tensors.  M <= ``M_SMEM`` runs the first form,
-    which holds a segment's valid slots in shared memory sized by M;
-    larger M (any M = N * knn) the general form, which holds up to
-    ``RECORDS`` of them a segment there (read at each call) and sends a
-    segment with more to its overflow path (no host sync either way).  ``general=True`` runs
-    the general form at any M.  ``pretest=False`` gives the kernel the
-    thresholds that keep every pair, so that each runs the exact path (what
-    the tests hold the pre-test against)."""
+                       pretest: bool = True) -> ScoredMatches:
+    """Kernel K2 on CUDA tensors, any M = N * knn.  The kernel holds up to
+    ``RECORDS`` valid slots a segment in shared memory (read at each call)
+    and sends a segment with more to its overflow path (no host sync
+    either way).  ``pretest=False`` gives the kernel the thresholds that
+    keep every pair, so that each runs the exact path (what the tests hold
+    the pre-test against)."""
     dev = d_p1.device
     V, S, M = d_p1.shape
     N = tgt_C.shape[1]
@@ -228,8 +222,6 @@ def score_matches_cuda(r1, r2, rmid, C, k_reg, tgt_C, tgt_k, d_p1, d_p2,
                          f"knn={knn}")
     if V * S >= 2**31:
         raise ValueError(f"kernel K2 takes V * S < 2^31, got {V * S}")
-    if general is None:
-        general = M > M_SMEM
     f32 = torch.float32
     for name, x, dtype, shape in (
             ("d_p1", d_p1, f32, (V, S, M)), ("d_p2", d_p2, f32, (V, S, M)),
@@ -241,33 +233,26 @@ def score_matches_cuda(r1, r2, rmid, C, k_reg, tgt_C, tgt_k, d_p1, d_p2,
         kernels.check(name, x, dtype, shape, dev)
     score = torch.empty((V, S, M), dtype=f32, device=dev)
     ok = torch.empty((V, S, M), dtype=torch.bool, device=dev)
-    p = kernels.ptr
     cos_lo, lp = (pretest_thresholds(two_sig_a_sqr, min_similarity)
                   if pretest else (-1.0, math.inf))
-    inputs = (p(d_p1), p(d_p2), p(valid), p(r1), p(r2), p(rmid), p(C),
-              p(k_reg), p(tgt_C), p(tgt_k), V, S, M, N, knn,
-              float(two_sig_a_sqr), float(min_similarity),
-              int(check_orientation), cos_lo, lp)
-    if general:
-        # the overflow path: the flagged segments and their count, and
-        # records for M slots for each of its blocks
-        records = RECORDS
-        over = min(records, M) < M
-        n = kernels.query("l3d_score_overflow_blocks") * M if over else 1
-        rec_a, rec_b = (torch.empty((n, 4), dtype=f32, device=dev)
-                        for _ in range(2))
-        rec_slot = torch.empty(n, dtype=torch.int32, device=dev)
-        flagged = torch.empty(V * S if over else 1, dtype=torch.int32,
-                              device=dev)
-        n_flagged = torch.empty(1, dtype=torch.int32, device=dev)
-        kernels.launch("l3d_score_matches_all", *inputs, int(records),
-                       p(rec_a), p(rec_b), p(rec_slot), p(flagged),
-                       p(n_flagged), p(score), p(ok), kernels.stream(dev))
-        obs.launched("score_matches_all")
-    else:
-        kernels.launch("l3d_score_matches", *inputs, p(score), p(ok),
-                       kernels.stream(dev))
-        obs.launched("score_matches")
+    # the overflow path: the flagged segments and their count, and records
+    # for M slots for each of its blocks
+    over = min(RECORDS, M) < M
+    n = kernels.query("l3d_score_overflow_blocks") * M if over else 1
+    rec_a, rec_b = (torch.empty((n, 4), dtype=f32, device=dev)
+                    for _ in range(2))
+    rec_slot = torch.empty(n, dtype=torch.int32, device=dev)
+    flagged = torch.empty(V * S if over else 1, dtype=torch.int32,
+                          device=dev)
+    n_flagged = torch.empty(1, dtype=torch.int32, device=dev)
+    p = kernels.ptr
+    kernels.launch(
+        "l3d_score_matches", p(d_p1), p(d_p2), p(valid), p(r1), p(r2),
+        p(rmid), p(C), p(k_reg), p(tgt_C), p(tgt_k), V, S, M, N, knn,
+        float(two_sig_a_sqr), float(min_similarity), int(check_orientation),
+        cos_lo, lp, RECORDS, p(rec_a), p(rec_b), p(rec_slot),
+        p(flagged), p(n_flagged), p(score), p(ok), kernels.stream(dev))
+    obs.launched("score_matches")
     return ScoredMatches(score, ok)
 
 

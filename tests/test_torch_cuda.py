@@ -41,7 +41,9 @@ def _tables(inp, dev):
 @pytest.mark.parametrize("knn", [1, 4, 10, 16])
 def test_k1_equals_plain_bit_for_bit(cuda, knn):
     """Same expressions in the same order without FMA contraction: the
-    kernel selects the same matches and gives the same depths exactly."""
+    kernel selects the same matches and gives the same depths exactly.
+    k <= ``matching.LIST_LEN``, the cells' k = 10 among them: each
+    source's exact top-k in its shared-memory list, no overflow path."""
     inp = synthetic_step_inputs(seed=1, V=6, S=700, N=4, n_lines=600)
     inp["pair_valid"][2, 1] = False
     inp["seg_mask"][3, 5:40] = False
@@ -110,7 +112,8 @@ def test_k1_equals_plain_at_the_edges(cuda, knn):
     """Ties across chunk borders, overlaps and outer_px exactly at their
     thresholds, inner at -EPS, a masked view and an invalid pair: the
     pre-test must keep every candidate the exact test accepts, so the
-    kernel equals the plain version bit for bit."""
+    kernel equals the plain version bit for bit, at the cells' k = 10 and
+    around it (the top-k lists, no overflow path)."""
     t, _, (c0, c1) = _crafted_tables(cuda)
     got = matching.match_pairs_cuda(t, 0.25, knn)
     want = matching.match_pairs_plain(t, 0.25, knn, chunk=4)
@@ -192,7 +195,9 @@ def test_k2_pretest_changes_no_bit(cuda, case):
         kw["min_similarity"] = float(case[-1])
     if case == "wide_angle":   # theta* >= 90 degrees: no angle test
         kw["two_sig_a_sqr"] = 1e6
+    kernels.reset_launches()
     got = _k2_against_exact_path_and_plain(args, dict(knn=knn, **kw))
+    assert kernels.LAUNCHES["score_matches"] == 2
     assert not got.valid[0, 3].any()
     assert not bool(got.score3d[0, 3].any())
     if case == "min_similarity_1":
@@ -239,7 +244,7 @@ def test_k2_pair_exactly_at_the_cut(cuda, term):
 def _one_line_tables(dev, S=1500, seed=5):
     """Every view's S segments are copies of one line's projection, half
     exact (ties) and half with 0.3 px of noise: each source row keeps more
-    than 1024 matches, which K1's general form lists past its shared
+    than 1024 matches, which K1's overflow path lists past its shared
     memory into its global scratch and sorts there."""
     inp = synthetic_step_inputs(seed=seed, V=3, S=S, N=2, n_lines=S)
     segs = inp["segments"]
@@ -254,17 +259,17 @@ def _one_line_tables(dev, S=1500, seed=5):
 
 @pytest.mark.parametrize("knn", [17, 40, 700])
 def test_k1_general_form_equals_plain_bit_for_bit(cuda, knn):
-    """The general form (k > 16) selects what the plain version's stable
-    sort selects, in its order, with the same depths; k = S keeps every
-    valid match."""
+    """At k above the cells' (k > 16; k = 700 = S past ``LIST_LEN``, the
+    overflow path) the kernel selects what the plain version's stable sort
+    selects, in its order, with the same depths; k = S keeps every valid
+    match.  One launch a call."""
     inp = synthetic_step_inputs(seed=1, V=6, S=700, N=4, n_lines=600)
     inp["pair_valid"][2, 1] = False
     inp["seg_mask"][3, 5:40] = False
     t = _tables(inp, cuda)
     kernels.reset_launches()
     got = matching.match_pairs_cuda(t, 0.25, knn)
-    assert kernels.LAUNCHES["match_pairs_all"] == 1
-    assert kernels.LAUNCHES["match_pairs"] == 0
+    assert kernels.LAUNCHES["match_pairs"] == 1
     want = matching.match_pairs_plain(t, 0.25, knn, chunk=4)
     assert int(want.valid.sum()) > 1000
     for name in got._fields:
@@ -293,7 +298,7 @@ def test_k1_general_form_overflow_path(cuda, monkeypatch, knn, list_len):
     kernels.reset_launches()
     monkeypatch.setattr(matching, "LIST_LEN", list_len)
     got = matching.match_pairs_cuda(t, 0.25, knn)
-    assert kernels.LAUNCHES["match_pairs_all"] == 1
+    assert kernels.LAUNCHES["match_pairs"] == 1
     want = matching.match_pairs_plain(t, 0.25, knn, chunk=4)
     rows = want.valid.sum(-1)
     assert int((rows > list_len).sum()) > 100
@@ -316,11 +321,10 @@ def test_k2_general_form_overflow_path(cuda, monkeypatch, records, shape):
     assert int((counts > records).sum()) > 0
     assert int(((counts > 0) & (counts <= records)).sum()) > 0
     monkeypatch.setattr(scoring, "RECORDS", 6144)
-    roomy = scoring.score_matches_cuda(*args, general=True, **kw)
+    roomy = scoring.score_matches_cuda(*args, **kw)
     monkeypatch.setattr(scoring, "RECORDS", records)
-    got = scoring.score_matches_cuda(*args, general=True, **kw)
-    every = scoring.score_matches_cuda(*args, general=True, pretest=False,
-                                       **kw)
+    got = scoring.score_matches_cuda(*args, **kw)
+    every = scoring.score_matches_cuda(*args, pretest=False, **kw)
     want = scoring.score_matches_plain(*args, chunk=64, **kw)
     for other in (roomy, every, want):
         assert torch.equal(got.score3d, other.score3d)
@@ -329,18 +333,18 @@ def test_k2_general_form_overflow_path(cuda, monkeypatch, records, shape):
 
 
 @pytest.mark.parametrize("knn", [1, 10, 16])
-def test_k1_forms_agree_and_keep_the_prefix(cuda, knn):
-    """Both forms at the same k give the same bits; the general form at k =
-    S gives the insertion form's k slots as its first k."""
+def test_k1_keeps_the_prefix(cuda, knn):
+    """The kernel at k (a top-k list) and at k = S (every match, rows past
+    ``LIST_LEN`` through the overflow path): the first k slots agree bit
+    for bit."""
     t, _, _ = _crafted_tables(cuda)
     S = t.mask.shape[1]
-    insertion = matching.match_pairs_cuda(t, 0.25, knn)
-    general = matching.match_pairs_cuda(t, 0.25, knn, general=True)
+    top = matching.match_pairs_cuda(t, 0.25, knn)
     every = matching.match_pairs_cuda(t, 0.25, S)
-    for name in insertion._fields:
-        a = getattr(insertion, name)
-        assert torch.equal(a, getattr(general, name)), name
-        assert torch.equal(a, getattr(every, name)[..., :knn]), name
+    assert int(every.valid.sum(-1).max()) > matching.LIST_LEN
+    for name in top._fields:
+        assert torch.equal(getattr(top, name),
+                           getattr(every, name)[..., :knn]), name
 
 
 def test_k1_cuda_rejects_k_beyond_s(cuda):
@@ -349,51 +353,30 @@ def test_k1_cuda_rejects_k_beyond_s(cuda):
         matching.match_pairs_cuda(t, 0.25, 41)
 
 
-@pytest.mark.parametrize("case", ["default", "knn1", "M1024",
-                                  "no_orientation", "min_similarity_0"])
-def test_k2_general_form_equals_first_form(cuda, case):
-    """On M <= 1024 the general form gives the first form's bits."""
-    kw = dict(two_sig_a_sqr=200.0, min_similarity=0.5,
-              check_orientation=case != "no_orientation")
-    shape = dict(knn1=dict(N=8, k=1), M1024=dict(V=2, S=6, N=4, k=256))
-    args, knn = _k2_case(cuda, **shape.get(case, {}))
-    if case == "min_similarity_0":
-        kw["min_similarity"] = 0.0
-    kernels.reset_launches()
-    first = scoring.score_matches_cuda(*args, knn=knn, **kw)
-    general = scoring.score_matches_cuda(*args, knn=knn, general=True, **kw)
-    assert kernels.LAUNCHES["score_matches"] == 1
-    assert kernels.LAUNCHES["score_matches_all"] == 1
-    assert torch.equal(first.score3d, general.score3d)
-    assert torch.equal(first.valid, general.valid)
-    assert int((first.score3d > 0).sum()) > 50
-
-
 @pytest.mark.parametrize("shape", [dict(V=2, S=8, N=4, k=300),
                                    dict(V=1, S=3, N=3, k=1000)])
 def test_k2_general_form_beyond_1024(cuda, shape):
-    """M > 1024 runs the general form: against its own exact path (no
-    pre-test) bit for bit, and the plain version."""
+    """M > 1024, past the cells' M = 160: against its own exact path (no
+    pre-test) bit for bit, and the plain version; one launch a call."""
     args, knn = _k2_case(cuda, **shape)
     kernels.reset_launches()
     got = _k2_against_exact_path_and_plain(
         args, dict(knn=knn, two_sig_a_sqr=200.0, min_similarity=0.5))
-    assert kernels.LAUNCHES["score_matches_all"] == 2
-    assert kernels.LAUNCHES["score_matches"] == 0
+    assert kernels.LAUNCHES["score_matches"] == 2
     assert int((got.score3d > 0).sum()) > 50
 
 
 def test_forward_step_cuda_all_matches(cuda):
-    """knn = S through the step on the card: K1's general form (M = 4 * 64
-    = 256 keeps K2's first form), the same outputs as the CPU's up to
-    transcendental rounding."""
+    """knn = S through the step on the card (K1 and K2 once each, M = 4 *
+    64 = 256), the same outputs as the CPU's up to transcendental
+    rounding."""
     inp = synthetic_step_inputs(seed=3, V=6, S=64, N=4)
     kw = dict(STEP_KW, knn=64)
     kernels.reset_launches()
     got = step.forward_step(
         *(torch.from_numpy(inp[n]).to(cuda) for n in STEP_ARRAYS), **kw)
     torch.cuda.synchronize()
-    assert kernels.LAUNCHES["match_pairs_all"] == 1
+    assert kernels.LAUNCHES["match_pairs"] == 1
     assert kernels.LAUNCHES["score_matches"] == 1
     want = step.forward_step(
         *(torch.from_numpy(inp[n]) for n in STEP_ARRAYS), **kw)

@@ -44,15 +44,16 @@ the CPU.
   once, at its place in list order, and the count is right, for empty
   lists, lists below one tile and of whole tiles, all survivors or none,
   several tile shapes and any mix of posted prefixes.
-- K1's general form (``csrc/matching.cu`` ``match_list_kernel``) keeps each
-  source's matches in a bounded sorted list: ``topk_split`` below builds
-  the rows from such lists (the top-k prune for k <= L, every key and the
-  overflow flag for k > L, the flagged rows from the overflow path); here
-  they equal the plain matcher's for k in {17, 20, 64, S} and two list
-  lengths, and exactly the rows longer than the list are flagged.
-- K2's general form (``csrc/scoring.cu`` ``score_segment``) lists a
-  segment's valid slots from 16-byte chunks of its validity row, ranks
-  them by a block prefix and compacts those that pass the gate in place:
+- K1 (``csrc/matching.cu`` ``match_list_kernel``) keeps each source's
+  matches in a bounded sorted list: ``topk_split`` below builds the rows
+  from such lists (the top-k prune for k <= L, every key and the overflow
+  flag for k > L, the flagged rows from the overflow path); here they
+  equal the plain matcher's for k in {1, 10, 17, 20, 64, S} (10: the
+  cells' k) and two list lengths, and exactly the rows longer than the
+  list are flagged.
+- K2 (``csrc/scoring.cu`` ``score_segment``) lists a segment's valid
+  slots from 16-byte chunks of its validity row, ranks them by a block
+  prefix and compacts those that pass the gate in place:
   ``setup_split`` below is that walk thread by thread; here every slot's
   zeros are written once with aligned 16-byte stores, every valid slot is
   set up once, in ascending order, the records are the passing slots in
@@ -1055,7 +1056,7 @@ def test_k10_span_follows_the_list_length(sms):
         assert span % (32 * 4) == 0 and span // 32 in (K10_ITEMS, 8)
 
 
-# ---- K1's general form: per-thread bounded lists
+# ---- K1: per-thread bounded lists
 
 def _match_key(overlap: float, tc: int) -> int:
     bits = int(np.float32(overlap).view(np.uint32))
@@ -1063,15 +1064,15 @@ def _match_key(overlap: float, tc: int) -> int:
 
 
 def topk_split(t, eo: float, knn: int, list_len: int) -> dict:
-    """K1's general form (``csrc/matching.cu`` ``match_list_kernel``), row
-    by row: the valid candidates in ascending target order, each kept in a
-    list of L = min(knn, list_len); knn <= L: the exact top-k, sorted (a
-    candidate must beat the k-th overlap, a full list drops its last); knn
-    > L: every passing target in target order, a row with more than L
-    flagged, and the keys ranked when the row is written.  The flagged
-    rows take the overflow path (here: the plain rows).  Returns
-    the assembled ``tgt_seg``/``overlap`` (P, S, knn), the flagged rows and
-    each row's candidate count."""
+    """K1 (``csrc/matching.cu`` ``match_list_kernel``), row by row: the
+    valid candidates in ascending target order, each kept in a list of L =
+    min(knn, list_len); knn <= L: the exact top-k, sorted (a candidate
+    must beat the k-th overlap, a full list drops its last); knn > L:
+    every passing target in target order, a row with more than L flagged,
+    and the keys ranked when the row is written.  The flagged rows take
+    the overflow path (here: the plain rows).  Returns the assembled
+    ``tgt_seg``/``overlap`` (P, S, knn), the flagged rows and each row's
+    candidate count."""
     P, S = t.num_src.shape
     L = min(knn, list_len)
     bounded = knn <= L
@@ -1140,7 +1141,7 @@ def _topk_scene(name):
 
 
 @pytest.mark.parametrize("list_len", [4, 32])
-@pytest.mark.parametrize("knn", [17, 20, 64, "S"])
+@pytest.mark.parametrize("knn", [1, 10, 17, 20, 64, "S"])
 @pytest.mark.parametrize("scene", ["synthetic1", "bundled", "one_line"])
 def test_k1_topk_split_equals_plain(scene, knn, list_len):
     t = _tables(_topk_scene(scene))
@@ -1160,14 +1161,14 @@ def test_k1_topk_split_equals_plain(scene, knn, list_len):
         assert len(over) > 0
 
 
-# ---- K2's general form: the set-up over 16-byte validity chunks
+# ---- K2: the set-up over 16-byte validity chunks
 
 def setup_split(valid_row: np.ndarray, addr: int, cap: int,
                 gate: np.ndarray, threads: int = 128,
                 unroll: int = 2) -> dict:
-    """K2's general form (``csrc/scoring.cu`` ``score_segment``) on one
-    row of M bools whose first byte lies at ``addr`` (mod 16), thread by
-    thread of its block: the zeros of the row's score (4 B) and validity
+    """K2 (``csrc/scoring.cu`` ``score_segment``) on one row of M bools
+    whose first byte lies at ``addr`` (mod 16), thread by thread of its
+    block: the zeros of the row's score (4 B) and validity
     (1 B) arrays by ``zero_row``, the valid slots listed by ``list_valid``
     (16 bytes a thread where aligned, a byte a thread at the ends, ranks by
     the block's prefix over the threads' counts, ``unroll`` chunks in
