@@ -24,7 +24,12 @@
    K1-K3 to have launched, ``load_bin`` of both ``.bin`` files to give the
    lines back, and the result to match ``testdata/out/...__vis_3.txt``
    (2276 lines) within 1% of its line count and at count_f1 >= 0.99 (1%
-   scene scale).  Then the worldpoint neighbours end to end: the COLMAP
+   scene scale); the sweep kernel launched once there and once in one
+   more reconstruction, profiled, with at most ``SW_SPAN_EVENTS`` device
+   events and ``SW_SPAN_D2H`` device-to-host copies inside ``recon.sweep``,
+   and its kernels line row ``SW sweep`` on that call's inputs, bit-equal
+   to the numpy path, with its bound (``SW_*``) and the numpy path's time
+   (``sweep_phase``).  Then the worldpoint neighbours end to end: the COLMAP
    model ``testdata/colmap_model/`` read with ``io.read_colmap`` and the
    26 cached segment sets through ``add_view(worldpoints=...)``
    (``colmap_phase``), and the item-13 options on the 26 views, the
@@ -314,6 +319,20 @@ CL_OPS_SIMILARITY = 110
 # is a normal float (CL_PRETEST_TINY); else it keeps the pair
 CL_PRETEST_MARGIN = 1.0 + 2.0**-20
 CL_PRETEST_TINY = 2.0**-126
+# the sweep kernel's float64 operations a member: the two projections
+# (four three-term dot products of 5, w, the denominator, the quotient:
+# ~30 each) and the event keys (~6); counted twice against the float32
+# peak, since the H100 runs float64 at half that rate
+SW_OPS_MEMBER = 2 * 66
+# the sweep kernel reads a member's two rays (24 B), its segment (16 B)
+# and its view and segment ids (8 B), and a cluster's line (48 B) and
+# bounds (4 B); it writes 16 B an interval and 8 B a cluster
+SW_BYTES_MEMBER = 48
+SW_BYTES_CLUSTER = 60
+# the recon.sweep span of the pipeline's own reconstruction: device events
+# and device-to-host copies at most (the upload, the launch, the read)
+SW_SPAN_EVENTS = 6
+SW_SPAN_D2H = 2
 # the long-edge grid: bands of this many rows of one angle, 47% active
 STRIPE_ROWS = 8
 STRIPE_ACTIVE = 0.47
@@ -2255,6 +2274,128 @@ def collinearity_row(args) -> dict:
     return row
 
 
+def sweep_phase(pipe) -> dict:
+    """The sweep kernel in the main path's pipeline (the 26 cached views,
+    ``Config(optimize=False)``, matched and reconstructed already): one
+    more ``reconstruct_3d_lines`` profiled, with the launch counters reset
+    before it and ``sweep_clusters``' inputs captured in it; the kernel
+    must launch once and ``recon.sweep`` hold at most ``SW_SPAN_EVENTS``
+    device events and ``SW_SPAN_D2H`` device-to-host copies (by correlation
+    id, as the benchmark's trace reader counts them); then the kernels
+    line's row on the captured inputs (:func:`sweep_row`)."""
+    from line3dpp_tpu_torch.ops import kernels, sweep
+
+    calls = []
+    orig = sweep.sweep_clusters
+
+    def wrapped(*args, **kw):
+        calls.append(args)
+        return orig(*args, **kw)
+
+    kernels.reset_launches()
+    sweep.sweep_clusters = wrapped
+    try:
+        _, events, wall = device_events(pipe.reconstruct_3d_lines)
+    finally:
+        sweep.sweep_clusters = orig
+    n_dev, d2h = span_device_events(events, "recon.sweep")
+    out = {"recon.sweep": dict(device_events=n_dev, d2h=d2h,
+                               launches=kernels.LAUNCHES["sweep"],
+                               reconstruct_ms=1e3 * wall),
+           "sweep_stats": dict(pipe.sweep_stats)}
+    print("sweep in the pipeline's reconstruction: " + json.dumps(out),
+          flush=True)
+    check(len(calls) == 1 and kernels.LAUNCHES["sweep"] == 1,
+          f"a profiled reconstruct_3d_lines called the sweep {len(calls)} "
+          f"times and launched its kernel {kernels.LAUNCHES['sweep']} "
+          f"times, not once")
+    check(n_dev <= SW_SPAN_EVENTS and d2h <= SW_SPAN_D2H,
+          f"recon.sweep made {n_dev} device events and {d2h} device-to-host"
+          f" copies in the pipeline's run (at most {SW_SPAN_EVENTS} and "
+          f"{SW_SPAN_D2H})")
+    out["kernel_row"] = sweep_row(calls[0])
+    return out
+
+
+def sweep_row(args) -> dict:
+    """The kernels line's row of the sweep kernel on the inputs the
+    pipeline gave ``sweep_clusters``: its intervals and reference views
+    against the numpy path's bit for bit (twice), its card time by the
+    launch alone into buffers of the known size, the wrapper's time, its
+    bound from the members, clusters and intervals of these inputs
+    (``SW_*``), and the numpy path's time."""
+    import torch
+    from line3dpp_tpu_torch.ops import kernels, sweep
+
+    (r1, r2, segs, cam_C, line_P1, line_dir, mc, mv, ms, C,
+     visibility) = args
+    got = sweep.sweep_clusters_cuda(*args)
+    t0 = time.perf_counter()
+    want = sweep.sweep_clusters_plain(*args)
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+
+    def same(a, b):
+        return all(np.array_equal(np.asarray(x).view(np.uint8),
+                                  np.asarray(y).view(np.uint8))
+                   for x, y in zip(a[:4], b[:4]))
+
+    check(same(got, want), "the sweep kernel's intervals or reference "
+                           "views differ from the numpy path's")
+    check(same(got, sweep.sweep_clusters_cuda(*args)),
+          "two calls of the sweep kernel differ")
+
+    # the launch alone, into buffers of the known size
+    m, S = len(mc), r1.shape[1]
+    dev = r1.device
+    order, bounds = sweep.cluster_csr(mc, C)
+    host, offsets = sweep._pack([
+        np.ascontiguousarray(line_P1, np.float64),
+        np.ascontiguousarray(line_dir, np.float64),
+        np.ascontiguousarray(cam_C, np.float32),
+        np.asarray(mv, np.int32)[order], np.asarray(ms, np.int32)[order],
+        np.asarray(bounds, np.int32)])
+    inp = torch.from_numpy(host).to(dev)
+    out = torch.empty(16 * m + 8 * C, dtype=torch.uint8, device=dev)
+    at = lambda t, o: kernels.ptr(t[o:])              # noqa: E731
+
+    def card():
+        kernels.launch("l3d_sweep", kernels.ptr(r1), kernels.ptr(r2),
+                       kernels.ptr(segs), *(at(inp, o) for o in (
+                           offsets[2], offsets[0], offsets[1], offsets[3],
+                           offsets[4], offsets[5])),
+                       C, m, S, int(visibility), None, at(out, 0),
+                       at(out, 8 * m), at(out, 16 * m),
+                       at(out, 16 * m + 4 * C), kernels.stream(dev))
+
+    card()
+    raw = out.cpu().numpy()
+    check(same(sweep.compact_intervals(
+        raw[:8 * m].view(np.float64), raw[8 * m:16 * m].view(np.float64),
+        raw[16 * m:16 * m + 4 * C].view(np.int32), bounds)
+        + (raw[16 * m + 4 * C:].view(np.int32),), want),
+        "the sweep kernel's launch alone differs from the numpy path")
+
+    n_iv = len(got[0])
+    ops = m * SW_OPS_MEMBER
+    moved = m * SW_BYTES_MEMBER + C * SW_BYTES_CLUSTER + 16 * n_iv
+    row = kernel_row(
+        "SW sweep", "sweep.cu",
+        "none (line3dpp_tpu/ops/sweep.py sweep_all_flat and "
+        "fitting.project_members_onto_lines_np: host numpy)", 0.0,
+        lambda: sweep.sweep_clusters_cuda(*args), plain_ms, ops, moved,
+        card=card)
+    row.update(clusters=int(C), members=int(m), intervals=int(n_iv),
+               large_clusters=int(got[4]),
+               largest_cluster=int(np.diff(bounds).max(initial=0)),
+               ops=ops, bytes=moved, pipeline_launches=1)
+    print(f"[SW] sweep on {C} clusters of {m} members: {n_iv} intervals, "
+          f"bit-equal to the numpy path; wrapper {row['ms']:.4f} ms, card "
+          f"{row['device_ms']:.4f} ms, bound {row['bound_ms']:.5f} ms "
+          f"({row['bound_by']}), numpy path {plain_ms:.2f} ms; largest "
+          f"cluster {row['largest_cluster']} members", flush=True)
+    return row
+
+
 def lm_reference(dev):
     """The bundling reference file: the Levenberg-Marquardt problem the JAX
     package assembled on the 26 cached views as tensors on ``dev`` (the
@@ -3384,6 +3525,11 @@ def main() -> None:
     check(abs(len(lines) - GOLDEN_LINES) <= 0.01 * GOLDEN_LINES,
           "line count off by more than 1%")
     check(m["count_f1"] >= 0.99, "count_f1 < 0.99")
+    check(cached_launches["sweep"] == 1, f"the cached-segments path "
+          f"launched the sweep kernel {cached_launches['sweep']} times, not "
+          f"once")
+    sweep_info = sweep_phase(pipe)
+    rows.append(sweep_info.pop("kernel_row"))
     if opts.profile:
         profile(pipe.match_images, "match_images", opts.out)
     del pipe

@@ -8,8 +8,8 @@ runs
 
 and writes the resulting 3D line model.  Phase 2 is one fused device step
 (``models/step.py``) on ``self.device``; phase 3 is host numpy, apart from
-the relative score cut, collinearity, RDD and line bundling, which run on
-``self.device``.
+the relative score cut, collinearity, RDD, line bundling and the interval
+sweep, which run on ``self.device``.
 
 The port runs every ``Config`` option, from images (LSD detection,
 ``add_image``/``add_images``) or from precomputed segments (``add_view``),
@@ -91,6 +91,9 @@ class Line3D:
         # (ops.bundling.optimize_cluster_lines' stats; empty when it did
         # not bundle)
         self.bundle_stats: dict = {}
+        # the sweep's counts in the last reconstruct_3d_lines call
+        # (ops.sweep.sweep_clusters' stats; empty when it did not sweep)
+        self.sweep_stats: dict = {}
         self._last_state: dict = {}
         # opt-in diagnostics, the JAX package's: set to [] before
         # reconstruct_3d_lines to collect one record per bimodal-split
@@ -313,7 +316,8 @@ class Line3D:
         state = dict(
             cam_ids=inp["cam_ids"], cams=inp["cams"],
             translation=inp["translation"], cb=inp["cb"],
-            segs=inp["segments"], mask=inp["seg_mask"],
+            segs=inp["segments"], segments=arrays["segments"],
+            mask=inp["seg_mask"],
             neighbor_ids=inp["neighbor_ids"], knn=inp["knn"], r1=r1, r2=r2)
         if inp["view_block"]:
             # large-scene path: source views in blocks, so that device
@@ -400,7 +404,7 @@ class Line3D:
                                 tv[valid] * S + ts[valid], ww))
 
     # ------------------------------------------------------------------
-    # phase 3: clustering, line fit, sweep (host)
+    # phase 3: clustering, line fit, sweep
     # ------------------------------------------------------------------
     def reconstruct_3d_lines(self) -> list[FinalLine3D]:
         with obs.span("reconstruct_3d_lines", self):
@@ -415,6 +419,7 @@ class Line3D:
         if not st:
             raise RuntimeError("call match_images() first")
         self.bundle_stats = {}
+        self.sweep_stats = {}
         cam_ids, cb, est = st["cam_ids"], st["cb"], st["est"]
         V, S = st["mask"].shape
         visibility = max(cfg.visibility_t, 3)
@@ -561,31 +566,22 @@ class Line3D:
                 stats=self.bundle_stats)
 
         with obs.span("recon.sweep"):
-            # --- project member segments onto their cluster lines
-            r1 = st["r1"].cpu().numpy()
-            r2 = st["r2"].cpu().numpy()
-            s1, s2, ok = fitting_ops.project_members_onto_lines_np(
-                lineP1[mc], line_dir[mc], cb.C[mv], r1[mv, ms], r2[mv, ms])
-
-            # --- interval sweep (line3D.cc:2342-2452), flat arrays
-            iv_c, iv_sa, iv_sb = sweep_ops.sweep_all_flat(
-                mc, s1, s2, ok, mv, C, visibility)
-
-            # reference view per cluster = camera of longest member 2D segment
-            # (line3D.cc:2183-2189); the first member wins ties
-            seg2d = st["segs"]
-            lens2d = np.hypot(seg2d[mv, ms, 2] - seg2d[mv, ms, 0],
-                              seg2d[mv, ms, 3] - seg2d[mv, ms, 1])
-            ref_view = np.zeros(C, np.int32)
-            o_rv = np.lexsort((-np.arange(len(mc)), lens2d, mc))
-            ref_view[mc[o_rv]] = mv[o_rv]  # last write per cluster = argmax
+            # --- the members in cluster order, shared with the assembly
+            order, bounds = sweep_ops.cluster_csr(mc, C)
+            # --- member segments projected onto their cluster lines, the
+            # interval sweep (line3D.cc:2342-2452, flat arrays) and the
+            # reference view per cluster, the camera of its longest member
+            # 2D segment (line3D.cc:2183-2189): one kernel on the card
+            iv_c, iv_sa, iv_sb, ref_view = sweep_ops.sweep_clusters(
+                st["r1"], st["r2"], st["segments"], cb.C, lineP1, line_dir,
+                mc, mv, ms, C, visibility, csr=(order, bounds),
+                stats=self.sweep_stats)
 
         with obs.span("recon.assemble"):
             # --- assemble + tiny-segment filter (line3D.cc:2302-2339)
             translation = st["translation"]
             cams = st["cams"]
-            order = np.argsort(mc, kind="stable")
-            bounds = np.searchsorted(mc[order], np.arange(C + 1))
+            seg2d = st["segs"]
 
             # interval endpoints back to original world coordinates
             # (untranslate, line3D.cc:539-545)

@@ -25,7 +25,8 @@ are read from the device trace (device-to-host copies launched inside a
 span), so they have no counter here; line bundling's counts (iterations,
 accepted steps, launches) are ``Line3D.bundle_stats``, and the plain loop
 that serves CPU tensors also opens one ``recon.bundle.lm_iteration`` span
-an iteration.
+an iteration; the interval sweep's (clusters, members, intervals, the
+clusters past the kernel's shared memory) are ``Line3D.sweep_stats``.
 
 Spans belong to the thread that runs the pipeline; the module keeps one
 stack of open spans.

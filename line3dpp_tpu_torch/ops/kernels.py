@@ -23,7 +23,8 @@ loop, ``csrc/bundling.cu`` behind ``ops/bundling.lm_optimize_cuda``
 (``lm_bundle``), and the collinearity edges, ``csrc/collinearity.cu``
 behind ``ops/collinearity.collinear_edges_cuda`` (``collinear_edges``: a
 count and a write launch, counted once a call); the JAX package computes
-both with XLA.
+both with XLA.  A third replaces host numpy: the interval sweep,
+``csrc/sweep.cu`` behind ``ops/sweep.sweep_clusters_cuda`` (``sweep``).
 """
 
 from __future__ import annotations
@@ -50,7 +51,7 @@ LAUNCHES = {"match_pairs": 0, "score_matches": 0,
             "apply_merge_dense": 0, "gather_labels": 0, "gather_merged": 0,
             "moments": 0, "gate_moments": 0, "gate_pixels": 0,
             "consume_survivors": 0, "band_counts": 0, "rescue_counts": 0,
-            "extents": 0, "lm_bundle": 0, "collinear_edges": 0}
+            "extents": 0, "lm_bundle": 0, "collinear_edges": 0, "sweep": 0}
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 _U = ctypes.c_uint
@@ -100,6 +101,9 @@ _SIGNATURES = {
     "l3d_collinear_count": [_P] * 9 + [_I] * 3 + [_F] * 2 + [_P] + [_P],
     # the same, counts ends edges, stream
     "l3d_collinear_write": [_P] * 9 + [_I] * 3 + [_F] * 2 + [_P] * 3 + [_P],
+    # r1 r2 segments cam_C line_P1 line_dir views segments bounds, C m S
+    # visibility, scratch, sa sb counts reference views, stream
+    "l3d_sweep": [_P] * 9 + [_I] * 4 + [_P] + [_P] * 4 + [_P],
 }
 # entry points that return a size, not an error: arguments, result
 _QUERIES = {"l3d_match_all_scratch": ([_I], _L),

@@ -28,6 +28,8 @@ from line3dpp_tpu_torch import camera
 from line3dpp_tpu_torch.ops import clustering, fitting, sweep
 from line3dpp_tpu_torch.utils import segments_cache, writers
 
+from test_torch_scenes import SWEEP_CASES, sweep_arguments, sweep_case
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -166,6 +168,36 @@ def test_fit_project_and_sweep_match_jax(rng):
                     jax_sweep.sweep_all_flat(members, s1, s2, ok, cams, C,
                                              3)):
         np.testing.assert_array_equal(x, y)
+
+
+@pytest.mark.parametrize("visibility", [2, 3, 5])
+@pytest.mark.parametrize("name", SWEEP_CASES)
+def test_sweep_clusters_on_cpu_tensors_match_jax(name, visibility):
+    """The sweep stage's wrapper on CPU tensors gives JAX's projections
+    swept by JAX's ``sweep_all_flat``, and the reference views of JAX's
+    pipeline (the camera of the longest member 2D segment, the first
+    member winning ties), bit for bit; the stats count the call."""
+    case = sweep_case(name, seed=10 + visibility)
+    mc, mv, ms, C = case["mc"], case["mv"], case["ms"], case["C"]
+    stats = {}
+    got = sweep.sweep_clusters(*sweep_arguments(case, visibility),
+                               stats=stats)
+    s1, s2, ok = jax_fitting.project_members_onto_lines_np(
+        case["line_P1"][mc], case["line_dir"][mc], case["cam_C"][mv],
+        case["r1"][mv, ms], case["r2"][mv, ms])
+    want = jax_sweep.sweep_all_flat(mc, s1, s2, ok, mv, C, visibility)
+    seg2d = case["segs"]
+    lens2d = np.hypot(seg2d[mv, ms, 2] - seg2d[mv, ms, 0],
+                      seg2d[mv, ms, 3] - seg2d[mv, ms, 1])
+    ref_view = np.zeros(C, np.int32)
+    o_rv = np.lexsort((-np.arange(len(mc)), lens2d, mc))
+    ref_view[mc[o_rv]] = mv[o_rv]
+    assert len(got) == 4
+    for g, w in zip(got, (*want, ref_view)):
+        assert g.dtype == np.asarray(w).dtype
+        np.testing.assert_array_equal(g, w)
+    assert stats == dict(clusters=C, members=len(mc),
+                         intervals=len(want[0]), large_clusters=0)
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():

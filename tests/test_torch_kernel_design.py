@@ -78,6 +78,22 @@ the CPU.
   divisions) keeps every pair the exact test keeps: at t = 1, 2 and 4, at
   each pair's own cut (the least float above its distances) with t moved
   by 2^-22 either way, and on degenerate, huge, NaN and subnormal inputs.
+- The sweep kernel (``csrc/sweep.cu``) takes a cluster a warp over the
+  members in cluster order (``sweep.cluster_csr``), keeps the members whose
+  projections are valid by ballots in member order, takes the border by a
+  lane-strided scan and an xor butterfly, numbers each member's camera by
+  a bitonic sort of (camera, rank), sorts the events by (distance to the
+  border, event index) with the same network and walks them on one lane,
+  writing each cluster's intervals at its CSR offset.  ``sweep_split``
+  below is a model of that work lane by lane (the card tests,
+  ``test_torch_sweep_cuda.py``, hold the kernel itself to the numpy path);
+  here its intervals, compacted by ``sweep.compact_intervals``, and its
+  reference views equal ``sweep_all_flat``'s and
+  ``sweep.reference_views_np``'s on every seeded case of
+  ``test_torch_scenes.sweep_case`` at visibility 2, 3 and 5; each stage
+  of the network touches every slot once; the global scratch holds every
+  cluster's sorts; the CSR keeps each cluster's member order; and the
+  reference view's length is numpy's float32 hypot.
 """
 
 import functools
@@ -88,14 +104,14 @@ import numpy as np
 import pytest
 import torch
 
-from line3dpp_tpu_torch.ops import collinearity, lsd, lsd_cc, lsd_fit, \
-    matching, scoring
+from line3dpp_tpu_torch.ops import collinearity, fitting, lsd, lsd_cc, \
+    lsd_fit, matching, scoring, sweep
 
 from test_torch_lsd_cases import lines_image, random_sorted_case, \
     random_tables
-from test_torch_scenes import agreeing_scoring_case, broken_line_views, \
-    bundled_step_inputs, k2_arguments, k2_scene_arguments, pair_list, \
-    synthetic_step_inputs
+from test_torch_scenes import SWEEP_CASES, agreeing_scoring_case, \
+    broken_line_views, bundled_step_inputs, k2_arguments, \
+    k2_scene_arguments, pair_list, sweep_case, synthetic_step_inputs
 
 EPS = matching.EPS
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -1454,3 +1470,262 @@ def test_collinear_pretest_rejects_nearly_all_pairs():
     pairs = int((mask[:, :, None] & mask[:, None, :]).sum())
     assert int(keeps.sum()) < 0.05 * pairs
     assert int(both.sum()) <= int(keeps.sum()) <= 4 * int(both.sum())
+
+
+# ---------------------------------------------------------------------------
+# the sweep kernel: its warp's steps, its sorting network, its scratch
+# ---------------------------------------------------------------------------
+
+LANES = 32
+
+
+def _fless(a: float, b: float) -> bool:
+    """numpy's sort order of floats (a NaN after every number)."""
+    return a < b or (b != b and a == a)
+
+
+def _fsame(a: float, b: float) -> bool:
+    return a == b or (a != a and b != b)
+
+
+def _before(ka, ia, kb, ib) -> bool:
+    return _fless(ka, kb) or (_fsame(ka, kb) and ia < ib)
+
+
+def _pow2(n: int) -> int:
+    return 1 if n <= 1 else 1 << (n - 1).bit_length()
+
+
+def bitonic_stages(n2: int):
+    """The kernel's ``warp_sort`` network on n2 slots: for each stage
+    (k, j), the compare-exchange pairs (i, q, ascending) that its threads
+    t < n2 / 2 take."""
+    k = 2
+    while k <= n2:
+        j = k >> 1
+        while j > 0:
+            yield k, j, [(((t & ~(j - 1)) << 1) | (t & (j - 1)),
+                          (((t & ~(j - 1)) << 1) | (t & (j - 1))) | j)
+                         for t in range(n2 // 2)]
+            j >>= 1
+        k <<= 1
+
+
+def warp_sort(key: list, idx: list) -> None:
+    """The kernel's bitonic sort of (key, idx) pairs, in place."""
+    for k, _, pairs in bitonic_stages(len(key)):
+        for i, q in pairs:
+            if _before(key[q], idx[q], key[i], idx[i]) == ((i & k) == 0):
+                key[i], key[q] = key[q], key[i]
+                idx[i], idx[q] = idx[q], idx[i]
+
+
+def _butterfly(vals: list, ids: list, better) -> tuple:
+    """The xor butterfly of the kernel's warp reductions: lane by lane,
+    each keeps its partner's (value, id) where ``better(own, other)``."""
+    for off in (16, 8, 4, 2, 1):
+        nv, ni = list(vals), list(ids)
+        for lane in range(LANES):
+            ov, oi = vals[lane ^ off], ids[lane ^ off]
+            if better(vals[lane], ids[lane], ov, oi):
+                nv[lane], ni[lane] = ov, oi
+        vals, ids = nv, ni
+    assert len(set(ids)) == 1           # every lane holds the same
+    return vals[0], ids[0]
+
+
+def glibc_hypotf(dx: np.ndarray, dy: np.ndarray) -> np.ndarray:
+    """The kernel's 2D length of float32 differences: the squares summed in
+    double, the double square root rounded to float32."""
+    x, y = dx.astype(np.float64), dy.astype(np.float64)
+    return np.sqrt(x * x + y * y).astype(np.float32)
+
+
+def sweep_split(s1, s2, ok, cams, lens, mc, C: int, visibility: int):
+    """A model of ``csrc/sweep.cu`` warp by warp, lane by lane: for each
+    cluster of ``sweep.cluster_csr``, the reference view from the members'
+    2D ``lens`` (lane-strided, then the butterfly; the first member wins
+    ties), the kept members in member order, the border (the later event
+    wins ties), the cameras numbered after the network's sort, the events
+    sorted by the network and walked.  Returns the intervals written at
+    each cluster's CSR offset, their counts, the reference views and the
+    bounds."""
+    order, bounds = sweep.cluster_csr(mc, C)
+    m = len(mc)
+    out_sa, out_sb = np.full(m, np.nan), np.full(m, np.nan)
+    n_iv = np.zeros(C, np.int32)
+    ref = np.zeros(C, np.int32)
+    for c in range(C):
+        mem = order[bounds[c]:bounds[c + 1]]
+        # 1. the reference view
+        best, bj = [0.0] * LANES, [-1] * LANES
+        for j in range(len(mem)):
+            lane = j % LANES
+            if bj[lane] < 0 or _fless(best[lane], float(lens[mem[j]])):
+                best[lane], bj[lane] = float(lens[mem[j]]), j
+        _, j = _butterfly(best, bj, lambda v, i, ov, oi: oi >= 0 and (
+            i < 0 or _fless(v, ov) or (_fsame(v, ov) and oi < i)))
+        ref[c] = cams[mem[j]] if j >= 0 else 0
+        # 2. the kept members, compacted in member order
+        kept = [r for r in mem if ok[r]]
+        n = len(kept)
+        if n < 3:
+            continue
+        p = [float(s1[r]) for r in kept] + [float(s2[r]) for r in kept]
+        # 3. the border
+        far, fe = [0.0] * LANES, [-1] * LANES
+        for e in range(2 * n):
+            d = abs(p[e] - 1.0)
+            lane = e % LANES
+            if fe[lane] < 0 or not _fless(d, far[lane]):
+                far[lane], fe[lane] = d, e
+        _, fe = _butterfly(far, fe, lambda v, i, ov, oi: oi >= 0 and (
+            i < 0 or _fless(v, ov) or (_fsame(v, ov) and oi > i)))
+        border = p[fe]
+        # 4. the cameras, numbered by their first sorted position
+        n2 = _pow2(n)
+        key = [float(cams[kept[i]]) if i < n else np.nan for i in range(n2)]
+        idx = list(range(n2))
+        warp_sort(key, idx)
+        slot = [0] * n
+        first = 0
+        for q in range(n):
+            if q > 0 and key[q] != key[q - 1]:
+                first = q
+            slot[idx[q]] = first
+        # 5. the events
+        e2 = _pow2(2 * n)
+        key = [abs(p[i] - border) if i < 2 * n else np.nan
+               for i in range(e2)]
+        idx = list(range(e2))
+        warp_sort(key, idx)
+        # 6. the walk
+        count, seen = [0] * n, [False] * n
+        opened, prev, start = 0, False, 0.0
+        for t in range(2 * n):
+            e = idx[t]
+            r = e if e < n else e - n
+            k = slot[r]
+            if not seen[r]:
+                seen[r] = True
+                count[k] += 1
+                opened += count[k] == 1
+            else:
+                count[k] -= 1
+                opened -= count[k] == 0
+            above = opened >= visibility
+            if above and not prev:
+                start = p[e]
+            elif not above and prev:
+                assert n_iv[c] < len(mem)       # within the cluster's slots
+                out_sa[bounds[c] + n_iv[c]] = start
+                out_sb[bounds[c] + n_iv[c]] = p[e]
+                n_iv[c] += 1
+            prev = above
+    return out_sa, out_sb, n_iv, ref, bounds
+
+
+def _sweep_numpy(case: dict, visibility: int):
+    """The numpy path's projections, intervals and reference views."""
+    mc, mv, ms = case["mc"], case["mv"], case["ms"]
+    s1, s2, ok = fitting.project_members_onto_lines_np(
+        case["line_P1"][mc], case["line_dir"][mc], case["cam_C"][mv],
+        case["r1"][mv, ms], case["r2"][mv, ms])
+    want = sweep.sweep_all_flat(mc, s1, s2, ok, mv, case["C"], visibility)
+    ref = sweep.reference_views_np(case["segs"], mc, mv, ms, case["C"])
+    return (s1, s2, ok), want, ref
+
+
+@pytest.mark.parametrize("visibility", [2, 3, 5])
+@pytest.mark.parametrize("name", SWEEP_CASES)
+def test_sweep_split_equals_the_numpy_sweep(name, visibility):
+    case = sweep_case(name, seed=visibility)
+    (s1, s2, ok), want, ref_want = _sweep_numpy(case, visibility)
+    segs, mv, ms = case["segs"], case["mv"], case["ms"]
+    lens = glibc_hypotf(segs[mv, ms, 2] - segs[mv, ms, 0],
+                        segs[mv, ms, 3] - segs[mv, ms, 1])
+    sa, sb, n_iv, ref, bounds = sweep_split(s1, s2, ok, mv, lens,
+                                            case["mc"], case["C"],
+                                            visibility)
+    got = sweep.compact_intervals(sa, sb, n_iv, bounds)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype
+        np.testing.assert_array_equal(g, w)
+    np.testing.assert_array_equal(ref, ref_want)
+    if name in ("random", "ties", "large") and visibility <= 3:
+        assert len(want[0]) > 0
+
+
+def test_sweep_network_takes_every_slot_once_a_stage():
+    """No two threads of a stage touch one slot (the stage is race-free
+    between its ``__syncwarp``s), every slot is touched, and the network
+    sorts any order of distinct keys."""
+    rng = np.random.default_rng(0)
+    for n2 in (2, 4, 8, 32, 64, 256, 1024):
+        for _, j, pairs in bitonic_stages(n2):
+            flat = [x for pq in pairs for x in pq]
+            assert sorted(flat) == list(range(n2))
+            assert all(q - i == j for i, q in pairs)
+        key = list(rng.integers(0, n2 // 2 + 1, n2).astype(float))
+        key[rng.integers(n2)] = np.nan
+        idx = list(range(n2))
+        want = sorted(zip(key, idx), key=lambda x: (np.isnan(x[0]),
+                                                    0 if np.isnan(x[0])
+                                                    else x[0], x[1]))
+        warp_sort(key, idx)
+        assert idx == [i for _, i in want]
+
+
+def test_sweep_scratch_holds_every_cluster():
+    """A cluster of m_c members sorts at most the next power of two of
+    2 m_c events: within its 4 m_c slots of global scratch, and within the
+    warp's slice of shared memory up to ``SMEM_MEMBERS`` members."""
+    for mc in range(1, 5000):
+        assert _pow2(2 * mc) <= 4 * mc and _pow2(mc) <= 4 * mc
+    assert _pow2(2 * sweep.SMEM_MEMBERS) == 2 * sweep.SMEM_MEMBERS
+    # key 8 B x 4, p 8 B x 2, idx 4 B x 4, cam, slot, count 4 B, seen 1 B
+    assert sweep.SCRATCH_BYTES == 32 + 16 + 16 + 12 + 1
+
+
+@pytest.mark.parametrize("name", ["random", "large", "sizes", "empty"])
+def test_cluster_csr_keeps_each_clusters_member_order(name):
+    case = sweep_case(name)
+    mc, C = case["mc"], case["C"]
+    order, bounds = sweep.cluster_csr(mc, C)
+    assert len(bounds) == C + 1 and bounds[0] == 0 and bounds[-1] == len(mc)
+    for c in range(C):
+        np.testing.assert_array_equal(order[bounds[c]:bounds[c + 1]],
+                                      np.flatnonzero(mc == c))
+
+
+@pytest.mark.parametrize("name", ["random", "large"])
+def test_compact_intervals_reads_each_clusters_slots(name):
+    """Intervals written at each cluster's CSR offset come back as the
+    flat arrays, grouped by ascending cluster, whatever the unused slots
+    hold."""
+    case = sweep_case(name)
+    _, (iv_c, iv_sa, iv_sb), _ = _sweep_numpy(case, 2)
+    _, bounds = sweep.cluster_csr(case["mc"], case["C"])
+    m = len(case["mc"])
+    sa, sb = np.full(m, 7.5), np.full(m, -7.5)
+    n_iv = np.bincount(iv_c, minlength=case["C"]).astype(np.int32)
+    at = bounds[iv_c] + np.arange(len(iv_c)) - (np.cumsum(n_iv) - n_iv)[iv_c]
+    sa[at], sb[at] = iv_sa, iv_sb
+    got = sweep.compact_intervals(sa, sb, n_iv, bounds)
+    for g, w in zip(got, (iv_c, iv_sa, iv_sb)):
+        np.testing.assert_array_equal(g, w)
+
+
+def test_reference_length_is_numpys_float32_hypot():
+    """numpy's float32 hypot (glibc's hypotf) is the double square root of
+    the summed squares, rounded: the kernel's length, so equal lengths tie
+    on the card as on the host."""
+    rng = np.random.default_rng(5)
+    scale = rng.choice([1e-3, 1.0, 300.0, 3000.0, 1e30], 200_000)
+    dx = (rng.normal(size=200_000) * scale).astype(np.float32)
+    dy = (rng.normal(size=200_000) * scale).astype(np.float32)
+    dx[:5] = (3.0, 0.0, -0.0, 3e38, 1e-45)
+    dy[:5] = (4.0, 0.0, 5.0, 3e38, 1e-45)
+    with np.errstate(over="ignore"):
+        np.testing.assert_array_equal(glibc_hypotf(dx, dy).view(np.int32),
+                                      np.hypot(dx, dy).view(np.int32))

@@ -382,3 +382,28 @@ def test_the_pipeline_keeps_the_bundle_stats():
     pipe.config = lt.Config(**dict(CONFIG, optimize=False))
     pipe.reconstruct_3d_lines()
     assert pipe.bundle_stats == {}
+
+
+def test_the_pipeline_keeps_the_sweep_stats():
+    """``Line3D.sweep_stats`` holds the last reconstruction's sweep counts,
+    and the numpy path on the CPU launches no kernel; a reconstruction
+    that ends before the sweep empties them."""
+    pipe = lt.Line3D(lt.Config(**dict(CONFIG, optimize=False)),
+                     device="cpu")
+    for cam_id, cam, segs in _scene():
+        pipe.add_view(cam_id, cam, segs)
+    pipe.match_images()
+    assert pipe.sweep_stats == {}
+    before = kernels.LAUNCHES["sweep"]
+    lines = pipe.reconstruct_3d_lines()
+    assert kernels.LAUNCHES["sweep"] == before
+    stats = pipe.sweep_stats
+    assert set(stats) == {"clusters", "members", "intervals",
+                          "large_clusters"}
+    assert stats["large_clusters"] == 0
+    assert 0 < len(lines) <= stats["clusters"] <= stats["members"]
+    assert stats["intervals"] >= sum(len(l.segments3d) for l in lines)
+    pipe.config = lt.Config(**dict(CONFIG, optimize=False,
+                                   visibility_t=50))
+    assert pipe.reconstruct_3d_lines() == []
+    assert pipe.sweep_stats == {}

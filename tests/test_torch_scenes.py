@@ -243,3 +243,164 @@ def test_synthetic_scene_is_consistent():
             q = np.append(inp["segments"][j, 0, :2], 1.0)
             e = inp["F"][i, g].astype(np.float64) @ p
             assert abs(e @ q) / np.hypot(e[0], e[1]) < 0.05   # pixels
+
+
+# ---------------------------------------------------------------- sweep
+SWEEP_CASES = ("random", "sizes", "ties", "one_camera", "many_views",
+               "large", "empty", "no_clusters")
+
+
+def sweep_case(name: str, seed: int = 0) -> dict:
+    """Seeded arguments of ``sweep.sweep_clusters`` as numpy arrays: ``r1``,
+    ``r2`` (V, S, 3) and ``segs`` (V, S, 4) float32, ``cam_C`` (V, 3)
+    float32, ``line_P1`` and ``line_dir`` (C, 3) float64, the members'
+    ``mc``, ``mv``, ``ms`` (int32, clusters interleaved in member order)
+    and ``C``; ``exact`` (m, 2) holds the parameters that the members of
+    the exact clusters project to, NaN elsewhere.
+
+    An exact cluster lies on the line z = zc, y = 0 along x, with integer
+    zc, and the cameras at integer (x, -1, z): the ray (t - x, 1, zc - z)
+    meets the line at x = t, and for small integer t every step of the
+    projection is exact, so ties of |p - 1| and of the distance to the
+    border happen as built.  A random cluster has a random line and rays
+    towards points near it.  A parallel member's first ray runs along the
+    line (a c - b^2 = 0: not kept).
+
+    ``sizes``: exact clusters of 0-4 kept members beside parallel ones and
+    a cluster without members; ``ties``: clusters of 3-40 members (so a
+    lane of the kernel's warp scans two of a cluster's events or members)
+    with parameters in {-1, ..., 3} and equally long segments; ``one_camera``: every member in view 2;
+    ``many_views``: 40 views, clusters of 33-40 members in distinct views;
+    ``large``: clusters of 129, 300 and 1000 members (past
+    ``sweep.SMEM_MEMBERS``) beside small ones; ``empty``: 3 clusters, no
+    member; ``no_clusters``: neither."""
+    rng = np.random.default_rng(seed)
+    V = 40 if name == "many_views" else 6
+    cam_x = rng.integers(-5, 6, V)
+    cam_z = rng.integers(-3, 4, V)
+    members = []                     # (cluster, view, kind, t1, t2)
+    lines = []                       # (exact, zc or (P, D))
+
+    def cluster(sizes_kinds, views=None, t_range=(-6, 8)):
+        c = len(lines)
+        exact = all(k != "random" for k in sizes_kinds)
+        if exact:
+            lines.append((True, int(rng.integers(-3, 4))))
+        else:
+            D = rng.normal(size=3)
+            lines.append((False, (rng.normal(size=3) * 5,
+                                  D / np.linalg.norm(D))))
+        for i, kind in enumerate(sizes_kinds):
+            v = int(views[i]) if views is not None else int(rng.integers(V))
+            t1, t2 = (float(x) for x in rng.integers(*t_range, size=2))
+            members.append((c, v, kind, t1, t2))
+
+    def mixed(n, p_parallel=0.1, exact=True, **kw):
+        kinds = ["parallel" if rng.uniform() < p_parallel else
+                 ("exact" if exact else "random") for _ in range(n)]
+        cluster(kinds, **kw)
+
+    if name == "random":
+        for _ in range(60):
+            mixed(int(rng.integers(0, 15)), exact=bool(rng.uniform() < 0.5))
+    elif name == "sizes":
+        for kept in (0, 1, 2, 3, 4, 3):
+            kinds = ["exact"] * kept + ["parallel"] * int(rng.integers(0, 3))
+            cluster(list(rng.permutation(kinds)) if kinds else [])
+        cluster([])
+    elif name == "ties":
+        for _ in range(20):
+            mixed(int(rng.integers(3, 41)), p_parallel=0.0,
+                  t_range=(-1, 4))
+    elif name == "one_camera":
+        for _ in range(20):
+            n = int(rng.integers(3, 12))
+            mixed(n, exact=bool(rng.uniform() < 0.5), views=[2] * n)
+    elif name == "many_views":
+        for _ in range(12):
+            n = int(rng.integers(33, 41))
+            mixed(n, exact=bool(rng.uniform() < 0.5),
+                  views=rng.permutation(V)[:n])
+    elif name == "large":
+        for n in (129, 5, 300, 128, 1000, 7):
+            mixed(n, exact=n != 300, t_range=(-20, 21))
+    elif name not in ("empty", "no_clusters"):
+        raise ValueError(name)
+    C = {"empty": 3, "no_clusters": 0}.get(name, len(lines))
+
+    order = rng.permutation(len(members))          # clusters interleaved
+    members = [members[i] for i in order]
+    per_view = np.zeros(V, np.int64)
+    ms = []
+    for _, v, *_ in members:
+        ms.append(per_view[v])
+        per_view[v] += 1
+    S = int(per_view.max(initial=0)) + 2
+    r1 = rng.normal(size=(V, S, 3)).astype(np.float32)
+    r2 = rng.normal(size=(V, S, 3)).astype(np.float32)
+    segs = rng.uniform(0, 3000, (V, S, 4)).astype(np.float32)
+    cam_C = np.stack([cam_x, -np.ones(V), cam_z], 1).astype(np.float32)
+    line_P1 = np.zeros((C, 3))
+    line_dir = np.zeros((C, 3))
+    for c, (exact, geo) in enumerate(lines[:C]):
+        if exact:
+            line_P1[c] = (0.0, 0.0, geo)
+            line_dir[c] = (1.0, 0.0, 0.0)
+        else:
+            line_P1[c], line_dir[c] = geo
+    exact_t = np.full((len(members), 2), np.nan)
+    for i, ((c, v, kind, t1, t2), s) in enumerate(zip(members, ms)):
+        C_v = cam_C[v].astype(np.float64)
+        if kind == "random":
+            u = rng.uniform(-3, 5, 2)
+            for r, uu in ((r1, u[0]), (r2, u[1])):
+                q = line_P1[c] + uu * line_dir[c] + rng.normal(0, 0.01, 3)
+                r[v, s] = (q - C_v) * rng.uniform(0.5, 2)
+        else:
+            dz = line_P1[c, 2] - C_v[2]
+            r1[v, s] = (t1 - C_v[0], 1.0, dz)
+            r2[v, s] = (t2 - C_v[0], 1.0, dz)
+            exact_t[i] = (t1, t2)
+            if kind == "parallel":
+                r1[v, s] = line_dir[c]
+                exact_t[i] = np.nan
+        if name == "ties" and rng.uniform() < 0.5:
+            x, y = rng.uniform(0, 2000, 2)
+            segs[v, s] = (x, y, x + 3000, y + 4000)    # all 5000 long
+    mc = np.array([m[0] for m in members], np.int32)
+    mv = np.array([m[1] for m in members], np.int32)
+    return dict(r1=r1, r2=r2, segs=segs, cam_C=cam_C, line_P1=line_P1,
+                line_dir=line_dir, mc=mc, mv=mv,
+                ms=np.array(ms, np.int32), C=C, exact=exact_t)
+
+
+def sweep_arguments(case: dict, visibility: int, dev="cpu") -> tuple:
+    """``sweep.sweep_clusters``' positional arguments for a
+    :func:`sweep_case`, the tables as tensors on ``dev``."""
+    t = lambda a: torch.from_numpy(a).to(dev)          # noqa: E731
+    return (t(case["r1"]), t(case["r2"]), t(case["segs"]), case["cam_C"],
+            case["line_P1"], case["line_dir"], case["mc"], case["mv"],
+            case["ms"], case["C"], visibility)
+
+
+def test_sweep_cases_project_as_built():
+    """Every member of an exact cluster projects to the parameters it was
+    built for, bit for bit, a parallel member is not kept, and the large
+    case has clusters past the kernel's shared-memory slice."""
+    from line3dpp_tpu_torch.ops import fitting, sweep
+
+    for name in SWEEP_CASES:
+        case = sweep_case(name)
+        mc, mv, ms = case["mc"], case["mv"], case["ms"]
+        s1, s2, ok = fitting.project_members_onto_lines_np(
+            case["line_P1"][mc], case["line_dir"][mc], case["cam_C"][mv],
+            case["r1"][mv, ms], case["r2"][mv, ms])
+        exact = ~np.isnan(case["exact"][:, 0])
+        np.testing.assert_array_equal(s1[exact], case["exact"][exact, 0])
+        np.testing.assert_array_equal(s2[exact], case["exact"][exact, 1])
+        assert ok[exact].all()
+        built_exact = np.array([case["line_dir"][c, 0] == 1.0 for c in mc],
+                               bool)
+        assert not ok[built_exact & ~exact].any(), name    # the parallel
+        if name == "large":
+            assert (np.bincount(mc) > sweep.SMEM_MEMBERS).sum() == 3
